@@ -1,0 +1,75 @@
+"""Paged decode attention: the wrapper of the CUDA kernel
+``csrc/paged_attention.cu`` (port of ``repro.kernels.paged_attention``).
+
+``paged_decode_attention`` launches the kernel on CUDA tensors and raises
+on anything it does not take; ``repro_torch.kernels.ops`` dispatches CPU
+tensors to the plain version in ``ref.py``.  ``paged_decode_attention.
+launches`` counts the kernel's launches.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import build
+
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_GROUP = 8        # query heads per kv head the kernel instantiates
+MAX_HEAD_DIM = 128
+MAX_PAGE = 32        # one lane per position of a page
+
+
+def check_tensor(name: str, t: torch.Tensor, device: torch.device,
+                 dtype=None, ndim: int | None = None) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if dtype is not None and t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if ndim is not None and t.dim() != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths):
+    """q: (B, H, hd); k/v_pages: (P, page, Hkv, hd); block_tables:
+    (B, maxp) int32 (pad with 0); lengths: (B,) int32.  Returns (B, H, hd)
+    in q's dtype (float32, or bfloat16 with float32 math)."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"unsupported dtype {q.dtype}")
+    check_tensor("q", q, dev, q.dtype, 3)
+    check_tensor("k_pages", k_pages, dev, q.dtype, 4)
+    check_tensor("v_pages", v_pages, dev, q.dtype, 4)
+    check_tensor("block_tables", block_tables, dev, torch.int32, 2)
+    check_tensor("lengths", lengths, dev, torch.int32, 1)
+    b, h, hd = q.shape
+    _, page, hkv, hd_k = k_pages.shape
+    if v_pages.shape != k_pages.shape or hd_k != hd:
+        raise ValueError(f"page shapes {tuple(k_pages.shape)} / "
+                         f"{tuple(v_pages.shape)} do not match q {q.shape}")
+    if block_tables.shape[0] != b or lengths.shape[0] != b:
+        raise ValueError("block_tables / lengths rows must equal B")
+    if h % hkv or h // hkv > MAX_GROUP:
+        raise ValueError(f"H={h}, Hkv={hkv}: need H % Hkv == 0 and "
+                         f"H / Hkv <= {MAX_GROUP}")
+    if hd > MAX_HEAD_DIM or not 1 <= page <= MAX_PAGE:
+        raise ValueError(f"head_dim {hd} > {MAX_HEAD_DIM} or page {page} "
+                         f"outside 1..{MAX_PAGE}")
+    out = torch.empty_like(q)
+    err = build.library().proserve_paged_decode(
+        DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
+        v_pages.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), b, h, hkv, hd, page, block_tables.shape[1],
+        1.0 / math.sqrt(hd), dev.index if dev.index is not None
+        else torch.cuda.current_device(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "paged_decode_attention")
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0

@@ -1,0 +1,198 @@
+"""Serve multi-priority requests on one model replica — the port's entry
+point (counterpart of ``repro.launch.serve --mode real`` and
+``examples/priority_serving.py``).
+
+    python -m repro_torch.launch.serve --arch qwen1_5_0_5b
+    python -m repro_torch.launch.serve --arch qwen1_5_0_5b --smoke --device cpu
+
+Random weights from ``--seed`` (nothing is downloaded).  Requests arrive in
+two waves: the first fills the paged pool with mid- and low-priority
+work; as soon as a first-wave request that shares the common prompt
+prefix has its first token, high-priority requests arrive, some with the
+same prefix (prefix-cache hits), and the pool is small enough that
+serving them preempts (evicts to host, later reloads or recomputes)
+lower-priority requests.  Prints the engine
+statistics, TTFT/TPOT per priority and TDG_Ratio.  On the card every
+attention call runs the hand-written CUDA kernels; ``--device cpu`` runs
+their plain PyTorch versions.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..configs import get, get_smoke
+from ..core import SLO, EngineConfig, Request, SlideBatching
+from ..core.tdg import tdg_ratio
+from ..models.model import ArchConfig, init_params, resolve_device
+from ..serving.engine import Engine
+
+# priority -> (weight, TTFT SLO s, TPOT SLO s)
+PRIORITIES = {1: (3.0, 0.5, 0.05), 2: (2.0, 1.0, 0.1), 3: (1.0, 2.0, 0.2)}
+W_P = 4.0
+
+
+@dataclasses.dataclass(frozen=True)
+class Traffic:
+    """Shape of one serve run.  ``num_blocks`` is the pool size in blocks
+    of ``block_size`` tokens (block 0 is reserved)."""
+    n_first: int = 8              # first wave: priorities 2 and 3
+    n_second: int = 4             # second wave: priority 1
+    prompt_min: int = 64
+    prompt_max: int = 512
+    output_len: int = 16
+    prefix_len: int = 64          # shared prompt prefix
+    num_blocks: int = 160
+    block_size: int = 16
+
+
+FULL = Traffic()
+SMOKE = Traffic(prompt_min=16, prompt_max=96, output_len=8, prefix_len=32,
+                num_blocks=28)
+
+
+@dataclasses.dataclass
+class ServeResult:
+    cfg: ArchConfig
+    params: dict
+    engine: Engine
+    requests: list                 # [(Request, prompt np.ndarray)]
+    wall_s: float
+    # host-clock stamps (s since the run began) of each request's arrival
+    # and emitted tokens, taken after the launch that produced them
+    arrived: dict
+    emitted: dict
+
+    def summary(self) -> dict:
+        st = self.engine.stats
+        reqs = [r for r, _ in self.requests]
+        out = {
+            "requests": len(reqs), "tokens_out": st.tokens_out,
+            "prefill_tokens": st.prefill_tokens, "wall_s": self.wall_s,
+            "tokens_per_s": (st.tokens_out + st.prefill_tokens) / self.wall_s,
+            "output_tokens_per_s": st.tokens_out / self.wall_s,
+            "iterations": st.iterations, "evictions": st.evictions,
+            "reload_blocks": st.reload_blocks,
+            "cache_hit_tokens": st.cache_hit_tokens,
+            "cache_insert_blocks": st.cache_insert_blocks,
+            "cow_forks": st.cow_forks,
+            "decode_launches": st.decode_launches,
+            "packed_prefill_calls": st.packed_prefill_calls,
+            "host_syncs": st.host_syncs,
+            "preemptions": sum(r.preemptions for r in reqs),
+            "tdg_ratio": tdg_ratio(reqs, w_p=W_P),
+        }
+        for p in sorted({r.priority for r in reqs}):
+            mine = [r.rid for r in reqs if r.priority == p]
+            ttft = [self.emitted[i][0] - self.arrived[i] for i in mine]
+            tpot = [(self.emitted[i][-1] - self.emitted[i][0])
+                    / (len(self.emitted[i]) - 1)
+                    for i in mine if len(self.emitted[i]) > 1]
+            out[f"ttft_p50_s_prio{p}"] = float(np.median(ttft))
+            out[f"tpot_p50_s_prio{p}"] = (float(np.median(tpot)) if tpot
+                                          else None)
+        return out
+
+
+def make_requests(cfg: ArchConfig, traffic: Traffic,
+                  rng: np.random.Generator) -> tuple[list, list]:
+    """Two waves of (Request, prompt).  Every other first-wave request and
+    the first half of the second wave start with one shared prefix."""
+    prefix = rng.integers(1, cfg.vocab, traffic.prefix_len).astype(np.int32)
+
+    def one(i: int, prio: int, shared: bool):
+        weight, ttft, tpot = PRIORITIES[prio]
+        plen = int(rng.integers(traffic.prompt_min, traffic.prompt_max + 1))
+        if shared:
+            plen = max(plen, traffic.prefix_len + traffic.block_size)
+        prompt = rng.integers(1, cfg.vocab, plen).astype(np.int32)
+        if shared:
+            prompt[:traffic.prefix_len] = prefix
+        r = Request(prompt_len=plen, output_len=traffic.output_len,
+                    arrival=0.0, slo=SLO(ttft, tpot), priority=prio,
+                    weight=weight)
+        return r, prompt
+
+    first = [one(i, 2 + i % 2, i % 2 == 0) for i in range(traffic.n_first)]
+    second = [one(i, 1, i < traffic.n_second // 2 + traffic.n_second % 2)
+              for i in range(traffic.n_second)]
+    return first, second
+
+
+def serve(cfg: ArchConfig, params: dict, traffic: Traffic, *,
+          seed: int = 0, device="cuda",
+          max_iters: int = 10000) -> ServeResult:
+    """Run both waves through one ``Engine`` until every request is done."""
+    eng = Engine(cfg, params, EngineConfig(eta=1.0, w_p=W_P, tau=1e9),
+                 SlideBatching(), num_blocks=traffic.num_blocks,
+                 block_size=traffic.block_size, device=device)
+    first, second = make_requests(cfg, traffic, np.random.default_rng(seed))
+    arrived: dict[int, float] = {}
+    emitted: dict[int, list] = {}
+    t0 = time.monotonic()
+
+    def on_token(req, tok, first_tok, last):
+        emitted.setdefault(req.rid, []).append(time.monotonic() - t0)
+
+    eng.on_token = on_token
+    for r, p in first:
+        arrived[r.rid] = 0.0
+        eng.add_request(r, p)
+    # the second wave arrives right after the step in which the first
+    # prefix-sharing request of the first wave got its first token: its
+    # prompt blocks are in the prefix cache, pinned while it runs
+    sharers = [r for r, p in first[::2]]
+    it = 0
+    while it < max_iters and not any(r.generated for r in sharers):
+        if eng.step() is None:
+            break
+        it += 1
+    for r, p in second:
+        r.arrival = eng.now
+        arrived[r.rid] = time.monotonic() - t0
+        eng.add_request(r, p)
+    eng.run_until_drained(max_iters=max_iters - it)
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    unfinished = [r.rid for r, _ in first + second
+                  if r.generated < r.output_len]
+    if unfinished:
+        raise RuntimeError(f"requests {unfinished} did not finish")
+    return ServeResult(cfg, params, eng, first + second, wall, arrived,
+                       emitted)
+
+
+def main(argv: Optional[list[str]] = None) -> ServeResult:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="qwen1_5_0_5b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced model and traffic (CPU-sized)")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    # fp32 is the parity mode: full-precision matmuls, never TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
+    traffic = SMOKE if args.smoke else FULL
+    params = init_params(cfg, torch.Generator(dev).manual_seed(args.seed),
+                         device=dev)
+    res = serve(cfg, params, traffic, seed=args.seed, device=dev)
+    where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+             else "cpu")
+    print(json.dumps({"arch": cfg.name, "device": where,
+                      **res.summary()}))
+    return res
+
+
+if __name__ == "__main__":
+    main()

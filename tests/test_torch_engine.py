@@ -1,0 +1,143 @@
+"""The port's ``Engine(device="cpu")`` against greedy decoding by the JAX
+package's full-sequence ``forward`` on the same parameters and prompts:
+token for token, on the ``tests/test_engine_real.py`` scenarios (plain,
+preemption, sync offload / recompute-only), the port's two-wave serve
+traffic (prefix-cache hits), and every flag that is not ported yet
+raising ``NotImplementedError``."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke
+from repro.models import forward as jax_forward
+from repro_torch.configs import get_smoke as t_get_smoke
+from repro_torch.core import SLO, EngineConfig, Request, SlideBatching
+from repro_torch.kernels import ops
+from repro_torch.launch import serve
+from repro_torch.models.convert import params_from_numpy
+from repro_torch.serving import Engine
+
+from _torch_port_util import jax_tree, perturbed_numpy_params
+
+CFG = get_smoke("qwen1_5_0_5b")
+TCFG = t_get_smoke("qwen1_5_0_5b")
+TREE = perturbed_numpy_params(CFG)
+JPARAMS = jax_tree(TREE)
+TPARAMS = params_from_numpy(TREE, device="cpu")
+PAD = 128            # one jit shape: causal attention ignores the padding
+
+
+@jax.jit
+def _last_logits(params, tokens, n):
+    logits, _ = jax_forward(CFG, params, tokens)
+    return jax.lax.dynamic_index_in_dim(logits[0], n - 1, keepdims=False)
+
+
+def greedy_reference(prompt, n):
+    seq = np.zeros((1, PAD), np.int32)
+    seq[0, :len(prompt)] = prompt
+    cur, out = len(prompt), []
+    for _ in range(n):
+        nxt = int(jnp.argmax(_last_logits(JPARAMS, jnp.asarray(seq), cur)))
+        out.append(nxt)
+        seq[0, cur] = nxt
+        cur += 1
+    return out
+
+
+def make_engine(num_blocks=128, **kw):
+    bm_kwargs = {k: kw.pop(k) for k in ("async_offload", "recompute_only")
+                 if k in kw}
+    return Engine(TCFG, TPARAMS, EngineConfig(eta=1.0, w_p=4.0, tau=1e9),
+                  SlideBatching(), num_blocks=num_blocks, block_size=16,
+                  bm_kwargs=bm_kwargs, device="cpu", **kw)
+
+
+def submit(eng, rng, plen, out_len, prio=1):
+    r = Request(prompt_len=plen, output_len=out_len, arrival=0.0,
+                slo=SLO(3600.0, 3600.0), priority=prio)
+    prompt = rng.integers(1, CFG.vocab, plen).astype(np.int32)
+    eng.add_request(r, prompt)
+    return r, prompt
+
+
+def check_streams(eng, reqs):
+    for r, prompt in reqs:
+        assert eng.outputs[r.rid] == greedy_reference(prompt, r.output_len), \
+            f"rid {r.rid} diverged"
+    st = eng.stats
+    assert st.host_syncs == st.decode_launches + st.packed_prefill_calls
+
+
+def test_engine_matches_greedy_reference():
+    rng = np.random.default_rng(0)
+    eng = make_engine()
+    reqs = [submit(eng, rng, int(rng.integers(8, 40)), 5) for _ in range(3)]
+    eng.run_until_drained()
+    check_streams(eng, reqs)
+    assert ops.launch_counts() == {"paged_decode_attention": 0,
+                                   "packed_prefill_attention": 0}
+
+
+def test_engine_preemption_roundtrip_exact():
+    rng = np.random.default_rng(1)
+    eng = make_engine(num_blocks=10)     # 144 usable tokens < 4*(40+6)
+    reqs = [submit(eng, rng, 40, 6) for _ in range(4)]
+    eng.run_until_drained(max_iters=400)
+    assert eng.stats.evictions > 0, "test needs actual preemption pressure"
+    check_streams(eng, reqs)
+
+
+@pytest.mark.parametrize("kwargs", [dict(async_offload=False),
+                                    dict(recompute_only=True)])
+def test_engine_sync_offload_and_recompute_exact(kwargs):
+    rng = np.random.default_rng(2)
+    eng = make_engine(num_blocks=10, **kwargs)
+    reqs = [submit(eng, rng, 40, 4) for _ in range(4)]
+    eng.run_until_drained(max_iters=400)
+    assert eng.stats.evictions > 0
+    check_streams(eng, reqs)
+
+
+def test_two_wave_serve_with_prefix_hits_exact():
+    res = serve.serve(TCFG, TPARAMS, serve.SMOKE, seed=3, device="cpu")
+    st = res.engine.stats
+    assert st.cache_hit_tokens > 0 and st.evictions > 0
+    check_streams(res.engine, res.requests)
+    summary = res.summary()
+    assert summary["requests"] == 12 and 0.0 <= summary["tdg_ratio"] <= 1.0
+
+
+def test_serve_entry_point_runs_on_cpu(capsys):
+    res = serve.main(["--smoke", "--device", "cpu", "--seed", "1"])
+    out = capsys.readouterr().out
+    assert '"device": "cpu"' in out and "tdg_ratio" in out
+    assert res.engine.stats.tokens_out == 12 * serve.SMOKE.output_len
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(overlap_transfers=True), dict(host_tier_bytes=1 << 20),
+    dict(spec_draft=("cfg", "params")), dict(role="prefill"),
+    dict(role="decode"), dict(packed_prefill=False),
+    dict(fused_decode=False), dict(handoff_quantize=True)],
+    ids=lambda kw: next(iter(kw)) + "=" + str(next(iter(kw.values()))))
+def test_unported_flags_raise(kwargs):
+    with pytest.raises(NotImplementedError):
+        make_engine(**kwargs)
+
+
+def test_unported_spec_k_and_families_raise():
+    with pytest.raises(NotImplementedError):
+        Engine(TCFG, TPARAMS, EngineConfig(spec_k=2), SlideBatching(),
+               device="cpu")
+    moe = t_get_smoke("qwen2_moe_a2_7b")
+    with pytest.raises(NotImplementedError):
+        Engine(moe, TPARAMS, EngineConfig(), SlideBatching(), device="cpu")
+    with pytest.raises(ValueError):
+        make_engine(role="router")
+    from repro_torch.serving import PagedKVPool
+    with pytest.raises(NotImplementedError):
+        PagedKVPool(TCFG, 8, 16, device="cpu", host_tier_bytes=1 << 20)
+    assert torch.float32 == TPARAMS["embed"].dtype

@@ -1,0 +1,129 @@
+"""The plain PyTorch versions of the ported kernels against the JAX
+package on the ``tests/test_kernels.py`` sweep: the Pallas kernels in
+interpret mode (``repro.kernels.ops``) and the ``ref.py`` oracles, fp32 at
+2e-5 and bf16 at 2e-2.  The port's dispatch sends CPU tensors to these
+plain versions."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def tol(name):
+    return dict(atol=2e-2, rtol=2e-2) if name == "bfloat16" \
+        else dict(atol=2e-5, rtol=2e-5)
+
+
+def both(a, name):
+    """One numpy array as a JAX and a torch array of the same dtype (bf16
+    rounding done once, by torch, so both sides see the same values)."""
+    t = torch.as_tensor(a).to(DTYPES[name][1])
+    j = jnp.asarray(t.float().numpy()).astype(DTYPES[name][0])
+    return j, t
+
+
+def ints(a):
+    return jnp.asarray(a, jnp.int32), torch.as_tensor(a, dtype=torch.int32)
+
+
+def f32(x):
+    return np.asarray(jnp.asarray(x, jnp.float32)) if not isinstance(
+        x, torch.Tensor) else x.float().numpy()
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("b,h,hkv,hd,page,maxp", [
+    (2, 4, 4, 32, 16, 4),      # MHA (G=1)
+    (3, 8, 2, 64, 16, 5),      # GQA G=4
+    (1, 16, 2, 16, 8, 8),      # G=8, small pages
+    (4, 6, 6, 128, 32, 2),     # head_dim 128
+])
+def test_paged_decode_plain_matches_jax(dtype, b, h, hkv, hd, page, maxp):
+    rng = np.random.default_rng(b * 100 + h)
+    n_pages = maxp * b + 3
+    q_j, q_t = both(rng.standard_normal((b, h, hd)), dtype)
+    k_j, k_t = both(rng.standard_normal((n_pages, page, hkv, hd)), dtype)
+    v_j, v_t = both(rng.standard_normal((n_pages, page, hkv, hd)), dtype)
+    bt_j, bt_t = ints(rng.integers(0, n_pages, (b, maxp)))
+    lens = rng.integers(1, maxp * page + 1, b)
+    lens[0] = 1
+    ln_j, ln_t = ints(lens)
+    got = tops.paged_decode_attention(q_t, k_t, v_t, bt_t, ln_t)
+    assert got.dtype == DTYPES[dtype][1] and got.shape == (b, h, hd)
+    for want in (jops.paged_decode_attention(q_j, k_j, v_j, bt_j, ln_j),
+                 jref.paged_decode_attention_ref(q_j, k_j, v_j, bt_j, ln_j)):
+        np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("s,sq,smax,h,hkv,hd,kvb", [
+    (2, 8, 64, 4, 2, 32, 16),
+    (1, 16, 128, 8, 8, 16, 32),
+    (3, 4, 40, 6, 2, 64, 16),   # smax not a multiple of kvb
+])
+def test_packed_prefill_plain_matches_jax(dtype, s, sq, smax, h, hkv, hd,
+                                          kvb):
+    rng = np.random.default_rng(s * 10 + sq)
+    q_j, q_t = both(rng.standard_normal((s, sq, h, hd)), dtype)
+    k_j, k_t = both(rng.standard_normal((s, smax, hkv, hd)), dtype)
+    v_j, v_t = both(rng.standard_normal((s, smax, hkv, hd)), dtype)
+    lens = rng.integers(sq, smax + 1, s)
+    lens[0] = sq                                  # fresh prompt, no prefix
+    ctx_j, ctx_t = ints(lens - sq)
+    got = tops.packed_prefill_attention(q_t, k_t, v_t, ctx_t)
+    assert got.dtype == DTYPES[dtype][1] and got.shape == q_t.shape
+    packed = jops.packed_prefill_attention(q_j, k_j, v_j, ctx_j,
+                                           kv_block=kvb)
+    per_request = jref.chunked_prefill_attention_ref(q_j, k_j, v_j,
+                                                     ctx_j + sq)
+    for want in (packed, per_request):
+        np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
+    # the per-request plain version is the packed one at ctx + Sq
+    np.testing.assert_allclose(
+        f32(tref.chunked_prefill_attention_ref(q_t, k_t, v_t, ctx_t + sq)),
+        f32(got), atol=0, rtol=0)
+
+
+def test_decode_plain_is_the_dense_decode_attention():
+    """Paged plain version == the model's dense decode attention on the
+    same logical KV (the engine relies on this)."""
+    from repro.models.layers import decode_attention
+    rng = np.random.default_rng(5)
+    b, h, hkv, hd, page, maxp = 2, 4, 2, 16, 8, 4
+    n_pages = b * maxp + 1
+    q = rng.standard_normal((b, h, hd)).astype(np.float32)
+    kp = rng.standard_normal((n_pages, page, hkv, hd)).astype(np.float32)
+    vp = rng.standard_normal((n_pages, page, hkv, hd)).astype(np.float32)
+    bt = np.arange(1, 1 + b * maxp, dtype=np.int32).reshape(b, maxp)
+    lens = np.array([13, 29], np.int32)
+    got = tops.paged_decode_attention(*map(torch.as_tensor,
+                                           (q, kp, vp, bt, lens)))
+    k_lin = kp[bt].reshape(b, maxp * page, hkv, hd)
+    v_lin = vp[bt].reshape(b, maxp * page, hkv, hd)
+    want = decode_attention(jnp.asarray(q)[:, None], jnp.asarray(k_lin),
+                            jnp.asarray(v_lin), jnp.asarray(lens))[:, 0]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+def test_cpu_tensors_never_launch_a_kernel():
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    tops.reset_launch_counts()
+    args = [torch.zeros(1, 2, 16), torch.zeros(3, 8, 2, 16),
+            torch.zeros(3, 8, 2, 16), torch.zeros(1, 2, dtype=torch.int32),
+            torch.ones(1, dtype=torch.int32)]
+    tops.paged_decode_attention(*args)
+    assert tops.launch_counts() == {"paged_decode_attention": 0,
+                                    "packed_prefill_attention": 0}
+    # the CUDA wrapper itself refuses CPU tensors instead of falling back
+    with pytest.raises(ValueError):
+        paged_decode_attention(*args)
+    with pytest.raises(ValueError):
+        tops.paged_decode_attention(*[a.to("meta") for a in args])
