@@ -1,8 +1,10 @@
 """Quickest proof that the PyTorch port runs on the card.
 
     python3 chip_smoke.py            # needs one CUDA card; no arguments
-    python3 chip_smoke.py --profile  # also: device time by kernel for the
-                                     # serve traffic (build/profile)
+    python3 chip_smoke.py --profile  # also: lanes off/on walls and host
+                                     # profile, device time by kernel for
+                                     # the serve and tiered traffic
+                                     # (build/profile)
 
 Phases (any failure exits non-zero; nothing is caught and continued):
   1. env     — the card's name and power limit (nvidia-smi), torch / CUDA.
@@ -11,19 +13,36 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                of each kernel.
   3. kernels — each CUDA kernel held against its plain PyTorch version at
                the serve phase's shapes (Qwen1.5-0.5B: H = Hkv = 16,
-               hd 64, page 16) and at Qwen2-7B's GQA widths (H 28, Hkv 4,
-               hd 128), fp32 atol = rtol = 2e-5; then timed with CUDA
-               events beside the plain version and, for packed prefill,
-               one ``F.scaled_dot_product_attention`` call (a yardstick the
-               port never calls).
+               hd 64, page 16) and, for the attention kernels, at
+               Qwen2-7B's GQA widths (H 28, Hkv 4, hd 128): attention at
+               fp32 atol = rtol = 2e-5, the copy kernels (int8 quantize /
+               dequantize of one demoted group of 8 blocks (8, 24, 2, 16,
+               16, 64), block gather) bitwise; then timed with CUDA events
+               beside the plain version and, where one PyTorch call
+               computes the same function, that call (a yardstick the port
+               never calls).
   4. serve   — the port's entry point ``repro_torch.launch.serve`` at the
                full width of Qwen1.5-0.5B (24 layers, fp32, random weights
                from seed 0): two waves of multi-priority requests with
-               prefix-cache hits and preemption.  Every stream must equal
-               greedy decoding by the port's own full-sequence forward;
-               each kernel's launch count must equal n_layers x the
-               engine's launches of its step; host syncs must equal model
-               launches.
+               prefix-cache hits and preemption, KV copies on the
+               background transfer lanes.  Every stream must equal greedy
+               decoding by the port's own full-sequence forward; each
+               attention kernel's launch count must equal n_layers x the
+               engine's launches of its step, and each copy kernel's the
+               calls counted by the pool, the tier store and the worker;
+               host syncs must equal model launches; offloads must land
+               with a measured copy time and no failed copy.  Then the same
+               traffic with the lanes off (``--no-overlap``, synchronous
+               copies): the same stream, launch-count and sync gates.
+  5. tiered  — ``serve --tiered`` at the same width and depth: a host tier
+               of 8 blocks, prefix-cache spill, a batch cap that leaves
+               preempted requests on host, and a third wave resending the
+               earlier prompts.  (a) With the exact fp32 cold tier every
+               stream equals greedy forward, and reloads, staged reloads or
+               restores, demotions and spills all happen.  (b) With the
+               int8 cold tier every request completes, both kv_quant
+               kernels launch as often as the tiers called them, and every
+               quantized plane comes back within scale / 2.
 
 fp32 matmuls run in full fp32: TF32 is switched off for cuBLAS and cuDNN.
 The last two lines are the ``{"kernels": ...}`` JSON and the
@@ -60,6 +79,12 @@ def phase(name: str) -> None:
 L2_FLUSH_BYTES = 128 << 20     # > the H100's 50 MB L2
 
 
+# device cycles (~0.1 ms) the stream spins before each timed call, so the
+# host has enqueued the whole call before the start event is reached and
+# a call shorter than its Python wrapper is not timed as host latency
+SPIN_CYCLES = 200_000
+
+
 def time_ms(fn, iters: int = 30, warmup: int = 3,
             cold_l2: bool = True) -> float:
     """Mean device time of ``fn`` in ms, CUDA events around each call,
@@ -74,6 +99,7 @@ def time_ms(fn, iters: int = 30, warmup: int = 3,
     for start, end in events:
         if cold_l2:
             flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -206,6 +232,7 @@ def kernels_phase(dev) -> dict:
                      640, 700, 767, 768]),
             prefill=(4, 256, 512, 28, 4, 128, [0, 256, 100, 64])),
     }
+    results["copy"] = copy_kernels(rng, dev)
     for label, c in cases.items():
         print(f"  -- {label}", flush=True)
         d_args = decode_case(rng, *c["decode"], dev)
@@ -263,26 +290,186 @@ def kernels_phase(dev) -> dict:
     return results
 
 
+def exact(name: str, got, want) -> float:
+    """Bitwise comparison (the copy kernels' contract)."""
+    torch.cuda.synchronize()
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(g, w):
+            fail(f"{name} is not bitwise equal to its plain version")
+    print(f"  {name}: bitwise equal to its plain version", flush=True)
+    return 0.0
+
+
+def copy_kernels(rng, dev) -> dict:
+    """The kv_quant pair on one demoted group of 8 Qwen1.5-0.5B blocks
+    (fp32 and bf16 input, with a zero plane and half-way values), and
+    block_gather in its JAX form (planes = 1) and in the pool's form
+    (planes = L*2, the offload snapshot)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.block_gather import block_gather
+    from repro_torch.kernels.kv_quant import (kv_block_dequantize,
+                                              kv_block_quantize)
+
+    print("  -- copy kernels (Qwen1.5-0.5B blocks)", flush=True)
+    n, lyr, bs, hkv, hd, nblk = 8, 24, 16, 16, 64, 160
+    x = torch.as_tensor(rng.standard_normal((n, lyr, 2, bs, hkv, hd)),
+                        dtype=torch.float32, device=dev)
+    x[0, 3, 1] = 0.0                                  # a zero plane
+    x[1, 0, 0] = (torch.arange(bs * hkv * hd, device=dev).reshape(
+        bs, hkv, hd) - 2000) * 0.5                    # exact half-way steps
+    q_err = exact("kv_block_quantize", kv_block_quantize(x),
+                  ref.kv_block_quantize_ref(x))
+    exact("kv_block_quantize (bf16 in)", kv_block_quantize(x.bfloat16()),
+          ref.kv_block_quantize_ref(x.bfloat16()))
+    vals, scales = ref.kv_block_quantize_ref(x)
+    d_err = exact("kv_block_dequantize", kv_block_dequantize(vals, scales),
+                  ref.kv_block_dequantize_ref(vals, scales))
+    pool1 = torch.as_tensor(rng.standard_normal((nblk, bs, hkv, hd)),
+                            dtype=torch.float32, device=dev)
+    idx = torch.as_tensor(rng.permutation(nblk)[:n], dtype=torch.int32)
+    idx_dev = idx.to(dev)
+    g_err = exact("block_gather (planes 1)", block_gather(pool1, idx),
+                  ref.block_gather_ref(pool1, idx_dev))
+    kv = torch.as_tensor(rng.standard_normal((lyr, 2, nblk, bs, hkv, hd)),
+                         dtype=torch.float32, device=dev)
+    exact("block_gather (planes 48)", block_gather(kv, idx, 2),
+          ref.block_gather_ref(kv, idx_dev, 2).contiguous())
+
+    lib = torch.mul(vals, scales[..., None, None, None])
+    torch.cuda.synchronize()
+    print("  torch.mul(vals, scales) (yardstick for kv_block_dequantize, not "
+          f"checked): {lib.dtype}, bitwise equal to the plain version: "
+          f"{torch.equal(lib, ref.kv_block_dequantize_ref(vals, scales))}",
+          flush=True)
+    r, e = n * lyr * 2, bs * hkv * hd
+    q_k, q_p = turns(lambda: kv_block_quantize(x),
+                     lambda: ref.kv_block_quantize_ref(x))
+    d_k, d_p = turns(lambda: kv_block_dequantize(vals, scales),
+                     lambda: ref.kv_block_dequantize_ref(vals, scales))
+    g_k, g_p = turns(lambda: block_gather(kv, idx, 2),
+                     lambda: ref.block_gather_ref(kv, idx_dev, 2)
+                     .contiguous())
+    g1_k, g1_p = turns(lambda: block_gather(pool1, idx),
+                       lambda: ref.block_gather_ref(pool1, idx_dev))
+    row_bytes = e * 4
+    out = {
+        # library: none; no single PyTorch call computes the per-plane
+        # absmax scales and the int8 values together
+        "kv_block_quantize": dict(
+            max_abs_err=q_err, ms=float(np.mean(q_k)), plain_ms=float(
+                np.mean(q_p)), library_ms=None,
+            warm_l2_ms=time_ms(lambda: kv_block_quantize(x), cold_l2=False),
+            bound=bound(r * e * (4 + 1) + 4 * r, 0),
+            shape=f"blocks {tuple(x.shape)} fp32"),
+        # library: one broadcast multiply; int8 x fp32 promotes to fp32
+        "kv_block_dequantize": dict(
+            max_abs_err=d_err, ms=float(np.mean(d_k)), plain_ms=float(
+                np.mean(d_p)), library_ms=time_ms(
+                    lambda: torch.mul(vals, scales[..., None, None, None])),
+            warm_l2_ms=time_ms(lambda: kv_block_dequantize(vals, scales),
+                               cold_l2=False),
+            bound=bound(r * e * (1 + 4) + 4 * r, 0),
+            shape=f"vals {tuple(vals.shape)} int8"),
+        # the offload snapshot's form; library: index_select along the
+        # block axis moves the same bytes (block axis left in place)
+        "block_gather": dict(
+            max_abs_err=g_err, ms=float(np.mean(g_k)), plain_ms=float(
+                np.mean(g_p)),
+            library_ms=time_ms(lambda: torch.index_select(kv, 2, idx_dev)),
+            warm_l2_ms=time_ms(lambda: block_gather(kv, idx, 2),
+                               cold_l2=False),
+            bound=bound(2 * n * lyr * 2 * row_bytes, 0),
+            shape=f"pool {tuple(kv.shape)} block_dim 2, n {n}"),
+        "block_gather (planes 1)": dict(
+            max_abs_err=g_err, ms=float(np.mean(g1_k)), plain_ms=float(
+                np.mean(g1_p)),
+            library_ms=time_ms(lambda: torch.index_select(pool1, 0,
+                                                          idx_dev)),
+            warm_l2_ms=time_ms(lambda: block_gather(pool1, idx),
+                               cold_l2=False),
+            bound=bound(2 * n * row_bytes, 0),
+            shape=f"pool {tuple(pool1.shape)}, n {n}"),
+    }
+    for name, res in out.items():
+        res["bound_ms"], res["bound_by"] = res.pop("bound")
+        print(f"  {name}: kernel {res['ms']:.4f} ms (warm L2 "
+              f"{res['warm_l2_ms']:.4f} ms), plain {res['plain_ms']:.4f} "
+              f"ms, library {res['library_ms']} ms, bound "
+              f"{res['bound_ms']:.4f} ms ({res['bound_by']}) "
+              f"[{res['shape']}]", flush=True)
+    return out
+
+
 # --------------------------------------------------------------------------
-# serve phase
+# serve and tiered phases
 # --------------------------------------------------------------------------
 
-def serve_phase(card: str):
-    from repro_torch.kernels import ops
-    from repro_torch.launch import serve
+_GREEDY: dict = {}
+
+
+def check_streams(res, label: str) -> None:
+    """Every stream against greedy decoding by the port's own forward
+    (one greedy run per distinct prompt)."""
     from repro_torch.models.model import forward
 
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    res = serve.main(["--arch", "qwen1_5_0_5b", "--device", "cuda",
-                      "--seed", "0"])
-    counts = ops.launch_counts()
     cfg, params, eng = res.cfg, res.params, res.engine
-    st = eng.stats
-    peak = torch.cuda.max_memory_allocated()
+    t0 = time.monotonic()
+    for r, prompt in res.requests:
+        got = eng.outputs[r.rid]
+        key = (prompt.tobytes(), r.output_len)
+        if key in _GREEDY:
+            if got != _GREEDY[key]:
+                fail(f"{label}: rid {r.rid} (priority {r.priority}) != "
+                     "greedy forward")
+            continue
+        cur = torch.as_tensor(prompt, dtype=torch.long, device="cuda")[None]
+        for pos in range(r.output_len):
+            logits = forward(cfg, params, cur, last_only=True)[0, -1]
+            want = int(logits.argmax())
+            if got[pos] != want:
+                top2 = torch.topk(logits, 2).values
+                fail(f"{label}: rid {r.rid} (priority {r.priority}) "
+                     f"diverges at output position {pos}: engine "
+                     f"{got[pos]}, greedy forward {want}, top-2 logit "
+                     f"margin {float(top2[0] - top2[1]):.3e}")
+            cur = torch.cat([cur, cur.new_tensor([[want]])], dim=1)
+        _GREEDY[key] = list(got)
+    print(f"  all {len(res.requests)} streams equal greedy forward token "
+          f"for token ({time.monotonic() - t0:.1f} s)", flush=True)
 
+
+def check_launches(res, counts: dict, label: str) -> None:
+    """Each attention kernel launched n_layers x the engine's launches of
+    its step; each copy kernel exactly as often as the pool, the tier
+    store and the transfer worker called it; one host sync per model
+    launch."""
+    eng = res.engine
+    st, pool, n_layers = eng.stats, eng.pool, res.cfg.n_layers
+    deq_worker = eng.worker.dequantize_calls if eng.worker else 0
+    want = {
+        "paged_decode_attention": n_layers * st.decode_launches,
+        "packed_prefill_attention": n_layers * st.packed_prefill_calls,
+        "block_gather": pool.gather_calls,
+        "kv_block_quantize": pool.quantize_calls + pool.tier.quantize_calls,
+        "kv_block_dequantize": (pool.dequantize_calls
+                                + pool.tier.dequantize_calls + deq_worker),
+    }
+    for name, n in want.items():
+        if counts[name] != n:
+            fail(f"{label}: {name} launched {counts[name]} times, its "
+                 f"callers counted {n}")
+    if st.host_syncs != st.decode_launches + st.packed_prefill_calls:
+        fail(f"{label}: host syncs {st.host_syncs} != decode launches + "
+             "packed prefill calls")
+    if st.transfer_failures:
+        fail(f"{label}: {st.transfer_failures} background copies failed")
+
+
+def report(res, counts: dict, label: str, card: str) -> None:
     summary = res.summary()
-    print(f"  [{card}] served {summary['requests']} requests in "
+    st = res.engine.stats
+    print(f"  [{card}] {label}: served {summary['requests']} requests in "
           f"{summary['wall_s']:.3f} s: {summary['tokens_per_s']:.1f} "
           f"tokens/s (prefill + output), "
           f"{summary['output_tokens_per_s']:.1f} output tokens/s",
@@ -291,55 +478,273 @@ def serve_phase(card: str):
         print(f"  [{card}] priority {p}: TTFT p50 "
               f"{summary[f'ttft_p50_s_prio{p}']:.4f} s, TPOT p50 "
               f"{summary[f'tpot_p50_s_prio{p}']:.4f} s", flush=True)
-    print(f"  [{card}] TDG_Ratio {summary['tdg_ratio']:.4f}, evictions "
-          f"{st.evictions}, reload blocks {st.reload_blocks}, cache-hit "
-          f"tokens {st.cache_hit_tokens}, cow forks {st.cow_forks}, "
-          f"iterations {st.iterations}, decode launches "
-          f"{st.decode_launches}, packed prefill calls "
-          f"{st.packed_prefill_calls}, host syncs {st.host_syncs}, "
-          f"max_memory_allocated {peak / 2**30:.3f} GiB", flush=True)
+    keys = ("tdg_ratio", "evictions", "reload_blocks", "cache_hit_tokens",
+            "cow_forks", "iterations", "decode_launches",
+            "packed_prefill_calls", "host_syncs", "offload_blocks",
+            "staged_hits", "staged_misses", "transfer_failures",
+            "t_block_measured", "host_bytes", "spill_blocks", "cold_blocks",
+            "demoted_blocks", "cold_reload_blocks")
+    print(f"  [{card}] " + ", ".join(f"{k} {summary[k]}" for k in keys)
+          + f", transfer_wait_s {st.transfer_wait_s:.4f}", flush=True)
+    cs = res.engine.cache.stats
+    print(f"  [{card}] cache: spilled {cs.spilled_blocks}, restored "
+          f"{cs.restored_blocks}, staged restores {cs.staged_restores}, "
+          f"re-adopted {cs.readopted_blocks}", flush=True)
     print(f"  launch counts {counts}", flush=True)
 
+def serve_phase(card: str):
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = serve.main(["--arch", "qwen1_5_0_5b", "--device", "cuda",
+                      "--seed", "0"])
+    counts = ops.launch_counts()
+    st = res.engine.stats
+    peak = torch.cuda.max_memory_allocated()
+    report(res, counts, "serve", card)
+    print(f"  max_memory_allocated {peak / 2**30:.3f} GiB", flush=True)
     if st.evictions < 1:
         fail("the serve phase had no eviction")
     if st.cache_hit_tokens < 1:
         fail("the serve phase had no prefix-cache hit")
-    if counts["paged_decode_attention"] != cfg.n_layers * st.decode_launches:
-        fail(f"paged decode launches {counts['paged_decode_attention']} != "
-             f"{cfg.n_layers} x {st.decode_launches}")
-    if counts["packed_prefill_attention"] != \
-            cfg.n_layers * st.packed_prefill_calls:
-        fail(f"packed prefill launches {counts['packed_prefill_attention']}"
-             f" != {cfg.n_layers} x {st.packed_prefill_calls}")
-    if st.host_syncs != st.decode_launches + st.packed_prefill_calls:
-        fail(f"host syncs {st.host_syncs} != decode launches + packed "
-             "prefill calls")
+    if st.offload_blocks < 1 or st.t_block_measured <= 0:
+        fail("no background D2H mirror landed with a measured copy time")
+    check_launches(res, counts, "serve")
+    check_streams(res, "serve")
+    res.engine.kill()
 
-    # every stream against greedy decoding by the port's own forward
-    t0 = time.monotonic()
-    for r, prompt in res.requests:
-        got = eng.outputs[r.rid]
-        cur = torch.as_tensor(prompt, dtype=torch.long, device="cuda")[None]
-        for pos in range(r.output_len):
-            logits = forward(cfg, params, cur, last_only=True)[0, -1]
-            want = int(logits.argmax())
-            if got[pos] != want:
-                top2 = torch.topk(logits, 2).values
-                fail(f"rid {r.rid} (priority {r.priority}) diverges at "
-                     f"output position {pos}: engine {got[pos]}, greedy "
-                     f"forward {want}, top-2 logit margin "
-                     f"{float(top2[0] - top2[1]):.3e}")
-            cur = torch.cat([cur, cur.new_tensor([[want]])], dim=1)
-    print(f"  all {len(res.requests)} streams equal greedy forward token "
-          f"for token ({time.monotonic() - t0:.1f} s)", flush=True)
-    return counts, summary, peak
+    print("  -- lanes off (synchronous copies on the engine thread)",
+          flush=True)
+    ops.reset_launch_counts()
+    off = serve.main(["--arch", "qwen1_5_0_5b", "--device", "cuda",
+                      "--seed", "0", "--no-overlap"])
+    counts_off = ops.launch_counts()
+    report(off, counts_off, "serve, lanes off", card)
+    if off.engine.worker is not None or off.engine.stats.offload_blocks:
+        fail("serve, lanes off: a background lane ran")
+    if off.engine.stats.evictions < 1:
+        fail("serve, lanes off: no eviction")
+    check_launches(off, counts_off, "serve, lanes off")
+    check_streams(off, "serve, lanes off")
+    off.engine.kill()
+    return counts, counts_off
+
+
+# |x - dequant(quant(x))| <= scale / 2 exactly; in fp32 three roundings of
+# values up to 127 steps (inv = 1 / scale, x * inv, q * scale) add at most
+# 3 * 127 * 2^-24 of a step
+QUANT_BOUND_STEPS = 0.5 + 3 * 127 * 2.0 ** -24
+
+
+class QuantAudit:
+    """Wraps ``ops.kv_block_quantize`` for one run: checks on the card
+    that every quantized plane comes back within ``QUANT_BOUND_STEPS``
+    of its scale."""
+
+    def __init__(self, ops):
+        self.ops, self.inner = ops, ops.kv_block_quantize
+        self.calls, self.planes = 0, 0
+        self.worst = torch.zeros((), device="cuda")
+
+    def __call__(self, blocks):
+        vals, scales = self.inner(blocks)
+        x = blocks.float().reshape(*scales.shape, -1)
+        deq = vals.reshape(x.shape).float() * scales[..., None]
+        err = (x.double() - deq.double()).abs().amax(-1)
+        step = scales.double().clamp_min(1e-30)
+        self.worst = torch.maximum(self.worst, (err / step).max().float())
+        self.calls += 1
+        self.planes += scales.numel()
+        return vals, scales
+
+    def __enter__(self):
+        self.ops.kv_block_quantize = self
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.kv_block_quantize = self.inner
+
+
+def tiered_phase(card: str):
+    from repro_torch.configs import get
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    args = ["--arch", "qwen1_5_0_5b", "--device", "cuda", "--seed", "0",
+            "--tiered"]
+    budget = serve.TIERED.host_tier_blocks * serve.block_bytes(
+        get("qwen1_5_0_5b"), serve.TIERED, torch.float32)
+    print(f"  traffic {serve.TIERED}", flush=True)
+
+    print("  -- (a) exact fp32 cold tier", flush=True)
+    ops.reset_launch_counts()
+    exact_res = serve.main(args + ["--exact-cold"])
+    counts_a = ops.launch_counts()
+    report(exact_res, counts_a, "tiered (a)", card)
+    st, cache = exact_res.engine.stats, exact_res.engine.cache.stats
+    for ok, what in (
+            (st.reload_blocks > 0, "no reload block"),
+            (st.staged_hits + cache.staged_restores > 0,
+             "no staged reload and no staged restore"),
+            (exact_res.engine.pool.tier.demoted_blocks > 0,
+             "no demoted block"),
+            (st.spill_blocks > 0, "no spilled block"),
+            (st.host_bytes <= budget,
+             f"host bytes {st.host_bytes} over the budget {budget}")):
+        if not ok:
+            fail(f"tiered (a): {what}")
+    check_launches(exact_res, counts_a, "tiered (a)")
+    check_streams(exact_res, "tiered (a)")
+    exact_res.engine.kill()
+
+    print("  -- (b) int8 cold tier", flush=True)
+    ops.reset_launch_counts()
+    with QuantAudit(ops) as audit:
+        int8_res = serve.main(args)
+    counts_b = ops.launch_counts()
+    report(int8_res, counts_b, "tiered (b)", card)
+    st, tier = int8_res.engine.stats, int8_res.engine.pool.tier
+    check_launches(int8_res, counts_b, "tiered (b)")
+    if st.cold_blocks + tier.demoted_blocks <= 0:
+        fail("tiered (b): nothing reached the int8 cold tier")
+    if tier.cold_reload_blocks <= 0:
+        fail("tiered (b): no cold block was reloaded")
+    if counts_b["kv_block_quantize"] < 1 or counts_b["kv_block_dequantize"] < 1:
+        fail("tiered (b): a kv_quant kernel never launched")
+    worst = float(audit.worst)
+    if not worst <= QUANT_BOUND_STEPS:
+        fail(f"tiered (b): a dequantized value is {worst:.7f} steps off "
+             f"(bound {QUANT_BOUND_STEPS:.7f})")
+    print(f"  {audit.planes} planes in {audit.calls} quantize calls: worst "
+          f"|x - dequant(quant(x))| = {worst:.7f} x scale (bound "
+          f"{QUANT_BOUND_STEPS:.7f} = 1/2 + fp32 rounding)", flush=True)
+    same = total = 0
+    for (ra, _), (rb, _) in zip(exact_res.requests, int8_res.requests):
+        a, b = exact_res.engine.outputs[ra.rid], int8_res.engine.outputs[rb.rid]
+        same += sum(x == y for x, y in zip(a, b))
+        total += len(a)
+    print(f"  int8 cold tier: {same} of {total} output tokens "
+          f"({100 * same / total:.1f} %) equal the exact pass's (not a "
+          "gate: int8 is lossy)", flush=True)
+    int8_res.engine.kill()
+    return counts_a, counts_b
+
+
+COPY_KERNELS = ("quantize_kernel", "dequantize_kernel", "gather_kernel")
+SCHED_KEYS = ("iterations", "decode_launches", "packed_prefill_calls",
+              "prefill_tokens", "evictions", "offload_blocks", "tdg_ratio")
+
+
+def thread_cpu_s(native_id: int) -> float:
+    """User + system CPU seconds of one thread of this process (Linux)."""
+    import os
+    fields = Path(f"/proc/self/task/{native_id}/stat").read_text() \
+        .rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+class MethodTimer:
+    """Wall seconds and calls of chosen methods, summed while the context
+    is active (each method is wrapped on its class and restored on exit;
+    a wrapper costs about a microsecond a call)."""
+
+    def __init__(self, targets):
+        self.targets = targets            # [(class, method name)]
+        self.seconds = {f"{c.__name__}.{n}": 0.0 for c, n in targets}
+        self.calls = dict.fromkeys(self.seconds, 0)
+        self._saved = []
+
+    def __enter__(self):
+        for cls, name in self.targets:
+            orig = cls.__dict__[name]
+            static = isinstance(orig, staticmethod)
+            fn = orig.__func__ if static else orig
+            key = f"{cls.__name__}.{name}"
+
+            def timed(*a, _fn=fn, _key=key, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    self.seconds[_key] += time.perf_counter() - t0
+                    self.calls[_key] += 1
+
+            setattr(cls, name, staticmethod(timed) if static else timed)
+            self._saved.append((cls, name, orig))
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, orig in reversed(self._saved):
+            setattr(cls, name, orig)
+
+
+def host_profile(cfg, params, out_dir: Path) -> None:
+    """Where the lanes' extra wall goes on the host: the serve traffic in
+    six turns (off, on, on, off, off, on), unprofiled but for
+    ``MethodTimer`` on the engine thread's step parts and the transfer
+    worker's copy parts, with each thread's CPU time and the plan
+    (iterations, launches, prefill tokens), so that a change of plan is
+    told apart from host overhead.  Prints the per-part medians of each
+    side and writes every run to ``out_dir/host_serve.json``."""
+    from repro_torch.launch import serve
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.transfer import TransferWorker
+
+    targets = [(Engine, n) for n in (
+        "step", "_run_prefill_packed", "_run_decode", "_sync_pool_with_bm",
+        "_dispatch_offloads", "_drain_transfers", "_prefetch_reloads",
+        "_sync_tier_state")] + [(TransferWorker, n) for n in (
+            "_execute", "_to_pinned", "_sync", "_unpin", "_to_device")]
+    runs = {"off": [], "on": []}
+    for overlap in (False, True, True, False, False, True):
+        cpu0 = time.thread_time()
+        with MethodTimer(targets) as timer:
+            res = serve.serve(cfg, params, serve.FULL, seed=0,
+                              overlap_transfers=overlap)
+        worker = res.engine.worker
+        summary = res.summary()
+        runs["on" if overlap else "off"].append({
+            "wall_s": res.wall_s,
+            "engine_cpu_s": time.thread_time() - cpu0,
+            "worker_cpu_s": (thread_cpu_s(worker._thread.native_id)
+                             if worker is not None and worker._thread
+                             else 0.0),
+            "plan": {k: summary[k] for k in SCHED_KEYS},
+            "seconds": timer.seconds, "calls": timer.calls})
+        res.engine.kill()
+    med = lambda side, f: float(np.median([f(r) for r in runs[side]]))
+    print("  host parts, serve traffic, median of 3 runs each side "
+          "(lanes off | on):", flush=True)
+    for label, f in (("wall", lambda r: r["wall_s"]),
+                     ("engine thread CPU", lambda r: r["engine_cpu_s"]),
+                     ("worker thread CPU", lambda r: r["worker_cpu_s"]),
+                     ("outside Engine.step", lambda r: r["wall_s"]
+                      - r["seconds"]["Engine.step"])):
+        print(f"  {med('off', f):9.4f} | {med('on', f):9.4f} s  {label}",
+              flush=True)
+    for key in runs["on"][0]["seconds"]:
+        print(f"  {med('off', lambda r: r['seconds'][key]):9.4f} | "
+              f"{med('on', lambda r: r['seconds'][key]):9.4f} s  {key} (calls "
+              f"{runs['off'][0]['calls'][key]} | {runs['on'][0]['calls'][key]})",
+              flush=True)
+    for side, rs in runs.items():
+        print(f"  plans, lanes {side}: " + "; ".join(
+            str(r["plan"]) for r in rs), flush=True)
+    (out_dir / "host_serve.json").write_text(json.dumps(runs, indent=1))
 
 
 def profile_phase(out_dir: Path) -> None:
-    """Serve the same traffic twice more, the second time under
-    torch.profiler: device time by kernel, and the device's busy share of
-    the first (unprofiled) run's wall time; also written to
-    ``out_dir/kernels.json``.  Runs only with ``--profile``."""
+    """Runs only with ``--profile``.  (1) The serve traffic with the
+    transfer lanes off and on, in turns (off, on, on, off): the walls;
+    then six more turns with the host parts timed (``host_profile``).  (2) The serve
+    traffic and the tiered traffic (exact cold tier) each
+    served twice more, the second time under torch.profiler: device time
+    by kernel, the share of the three copy kernels, the device's busy
+    share of the first (unprofiled) run's wall, and the copy engines'
+    time (memcpy rows, which overlap the kernels on the copy stream);
+    written to ``out_dir/kernels_<traffic>.json``."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get
@@ -348,41 +753,66 @@ def profile_phase(out_dir: Path) -> None:
 
     cfg = get("qwen1_5_0_5b")
     params = init_params(cfg, torch.Generator("cuda").manual_seed(0))
-    plain_wall = serve.serve(cfg, params, serve.FULL, seed=0).wall_s
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        res = serve.serve(cfg, params, serve.FULL, seed=0)
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
+
+    def run(traffic, **kw):
+        res = serve.serve(cfg, params, traffic, seed=0, **kw)
+        res.engine.kill()
+        return res
+
+    walls = {True: [], False: []}
+    for overlap in (False, True, True, False):
+        walls[overlap].append(run(serve.FULL,
+                                  overlap_transfers=overlap).wall_s)
+    print(f"  serve wall, lanes off: {walls[False]} s; lanes on: "
+          f"{walls[True]} s (turns off, on, on, off)", flush=True)
     out_dir.mkdir(parents=True, exist_ok=True)
-    rows = []          # device kernels only: host ops would count twice
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(evt, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(evt, "self_cuda_time_total", 0)
-        if dev_us > 0:
-            rows.append((dev_us, evt.key, evt.count))
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows) / 1e6
-    st = res.engine.stats
-    print(f"  device busy {busy:.3f} s = {100 * busy / plain_wall:.1f} % "
-          f"of the unprofiled serve wall {plain_wall:.3f} s (idle "
-          f"{100 * (1 - busy / plain_wall):.1f} %); profiled wall "
-          f"{wall:.3f} s; iterations {st.iterations}, decode launches "
-          f"{st.decode_launches}, packed prefill calls "
-          f"{st.packed_prefill_calls}", flush=True)
-    for dev_us, key, count in rows[:25]:
-        print(f"  {dev_us / 1e3:10.3f} ms {100 * dev_us / 1e6 / busy:5.1f} "
-              f"% x{count:6d}  {key[:90]}", flush=True)
-    (out_dir / "kernels.json").write_text(json.dumps(
-        {"wall_s": plain_wall, "profiled_wall_s": wall,
-         "device_busy_s": busy,
-         "rows": [{"device_ms": d / 1e3, "name": k, "count": c}
-                  for d, k, c in rows]}, indent=1))
+    host_profile(cfg, params, out_dir)
+    for label, traffic, kw in (("serve", serve.FULL, {}),
+                               ("tiered", serve.TIERED,
+                                {"cold_quantize": False})):
+        plain_wall = run(traffic, **kw).wall_s
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            res = run(traffic, **kw)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        rows = []      # device rows only: host ops would count twice
+        for evt in prof.key_averages():
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            dev_us = getattr(evt, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(evt, "self_cuda_time_total", 0)
+            if dev_us > 0:
+                rows.append((dev_us, evt.key, evt.count))
+        rows.sort(reverse=True)
+        memcpy = sum(r[0] for r in rows if r[1].startswith("Memcpy")) / 1e6
+        busy = sum(r[0] for r in rows
+                   if not r[1].startswith(("Memcpy", "Memset"))) / 1e6
+        copy = sum(r[0] for r in rows
+                   if any(k in r[1] for k in COPY_KERNELS)) / 1e6
+        st = res.engine.stats
+        print(f"  [{label}] kernels busy {busy:.3f} s = "
+              f"{100 * busy / plain_wall:.1f} % of the unprofiled wall "
+              f"{plain_wall:.3f} s (idle "
+              f"{100 * (1 - busy / plain_wall):.1f} %); profiled wall "
+              f"{wall:.3f} s; copy kernels {1e3 * copy:.3f} ms = "
+              f"{100 * copy / busy:.2f} % of kernel time; memcpy (copy "
+              f"engines) {memcpy:.3f} s; iterations {st.iterations}, "
+              f"decode launches {st.decode_launches}, packed prefill calls "
+              f"{st.packed_prefill_calls}", flush=True)
+        for dev_us, key, count in rows[:25]:
+            print(f"  {dev_us / 1e3:10.3f} ms {100 * dev_us / 1e6 / busy:5.1f}"
+                  f" % x{count:6d}  {key[:90]}", flush=True)
+        (out_dir / f"kernels_{label}.json").write_text(json.dumps(
+            {"wall_s": plain_wall, "profiled_wall_s": wall,
+             "device_busy_s": busy, "copy_kernels_s": copy,
+             "memcpy_s": memcpy, "lanes_off_walls_s": walls[False],
+             "lanes_on_walls_s": walls[True],
+             "rows": [{"device_ms": d / 1e3, "name": k, "count": c}
+                      for d, k, c in rows]}, indent=1))
 
 
 def main() -> None:
@@ -422,13 +852,16 @@ def main() -> None:
     kres = kernels_phase(dev)
 
     phase("serve")
-    counts, summary, peak = serve_phase(card)
+    counts, counts_off = serve_phase(card)
+
+    phase("tiered")
+    counts_a, counts_b = tiered_phase(card)
 
     if "--profile" in sys.argv[1:]:
         phase("profile")
         profile_phase(ROOT / "build" / "profile")
 
-    main_path = kres["qwen1.5-0.5b"]
+    main_path = {**kres["qwen1.5-0.5b"], **kres["copy"]}
     meta = {
         "paged_decode_attention": dict(
             source="src/repro_torch/csrc/paged_attention.cu",
@@ -436,10 +869,29 @@ def main() -> None:
         "packed_prefill_attention": dict(
             source="src/repro_torch/csrc/packed_prefill.cu",
             replaces="src/repro/kernels/chunked_prefill.py:148"),
+        "kv_block_quantize": dict(
+            source="src/repro_torch/csrc/kv_quant.cu",
+            replaces="src/repro/kernels/kv_quant.py:55"),
+        "kv_block_dequantize": dict(
+            source="src/repro_torch/csrc/kv_quant.cu",
+            replaces="src/repro/kernels/kv_quant.py:78"),
+        "block_gather": dict(
+            source="src/repro_torch/csrc/block_gather.cu",
+            replaces="src/repro/kernels/block_gather.py:23"),
     }
+    # launches: the main paths' runs (serve with the lanes on and off,
+    # tiered (a), tiered (b)), each read right after its run with the
+    # counts set to 0 just before it
+    runs = (counts, counts_off, counts_a, counts_b)
+    launches = {name: sum(c[name] for c in runs) for name in meta}
+    for name, n in launches.items():
+        if n < 1:
+            fail(f"{name} never launched on the main paths")
+    print(f"  launches: serve {counts}; serve, lanes off {counts_off}; "
+          f"tiered (a) {counts_a}; tiered (b) {counts_b}", flush=True)
     line = {"kernels": [
         {"name": name, "route": "cuda", **meta[name],
-         "launches": counts[name],
+         "launches": launches[name],
          "max_abs_err": main_path[name]["max_abs_err"],
          "ms": main_path[name]["ms"], "kernel_ms": main_path[name]["ms"],
          "plain_ms": main_path[name]["plain_ms"],

@@ -6,7 +6,12 @@ under the repository root, and loaded with ``ctypes``.  The sources are
 compiled in parallel (one ``nvcc`` per file) and linked once.  A hash of
 the sources and flags is kept beside the library; the library is rebuilt
 when it changes.  Nothing here runs at import time: the first kernel
-launch calls ``library()``.  A failed build raises; there is no fallback.
+launch calls ``library()``, under a lock, so two threads that launch
+first at the same time (the engine and the transfer worker) build once.
+A failed build raises; there is no fallback.
+
+``count_launch`` / ``reset_launches`` keep each wrapper's launch counter
+under one lock, so launches from both threads are counted exactly.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -26,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.c_longlong
 # C entry points and their argument types (pointers and the stream as
 # c_void_p, so 64-bit addresses are not cut to 32-bit ints)
 SIGNATURES = {
@@ -37,7 +44,15 @@ SIGNATURES = {
     # device, stream
     "proserve_packed_prefill": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _I, _I, _F, _I, _P],
+    # dtype, x, vals, scales, R, E, device, stream
+    "proserve_kv_quantize": [_I, _P, _P, _P, _I, _LL, _I, _P],
+    # vals, scales, out, R, E, device, stream
+    "proserve_kv_dequantize": [_P, _P, _P, _I, _LL, _I, _P],
+    # pool, idx, out, n, planes, N, row_bytes, device, stream
+    "proserve_block_gather": [_P, _P, _P, _I, _I, _LL, _LL, _I, _P],
 }
+_BUILD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def sources() -> list[Path]:
@@ -107,9 +122,14 @@ def is_current() -> bool:
             and stamp.read_text() == source_hash())
 
 
-@functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if missing or stale."""
+    with _BUILD_LOCK:
+        return _load()
+
+
+@functools.lru_cache(maxsize=None)
+def _load() -> ctypes.CDLL:
     if not is_current():
         build()
     lib = ctypes.CDLL(str(BUILD_DIR / LIB_NAME))
@@ -124,3 +144,15 @@ def check(err: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` (a kernel launched)."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+
+
+def reset_launches(wrappers) -> None:
+    with _COUNT_LOCK:
+        for w in wrappers:
+            w.launches = 0

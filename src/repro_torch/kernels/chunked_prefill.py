@@ -15,7 +15,7 @@ import math
 import torch
 
 from . import build
-from .paged_attention import DTYPES, check_tensor
+from .paged_attention import DTYPES, check_tensor, device_index
 
 HEAD_DIMS = (16, 32, 64, 128)   # instantiated in packed_prefill.cu
 
@@ -51,10 +51,10 @@ def packed_prefill_attention(q, k_cache, v_cache, ctx_lens):
         DTYPES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(), s, sq, h,
         hkv, hd, smax, 1.0 / math.sqrt(hd),
-        dev.index if dev.index is not None else torch.cuda.current_device(),
+        device_index(dev),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "packed_prefill_attention")
-    packed_prefill_attention.launches += 1
+    build.count_launch(packed_prefill_attention)
     return out
 
 

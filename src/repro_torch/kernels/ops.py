@@ -7,9 +7,18 @@ or launch failure; a CPU tensor takes the plain PyTorch version in
 """
 from __future__ import annotations
 
-from . import ref
+from . import build, ref
+from .block_gather import block_gather as _block_gather
 from .chunked_prefill import packed_prefill_attention as _packed_prefill
+from .kv_quant import kv_block_dequantize as _kv_dequant
+from .kv_quant import kv_block_quantize as _kv_quant
 from .paged_attention import paged_decode_attention as _paged_decode
+
+_WRAPPERS = {"paged_decode_attention": _paged_decode,
+             "packed_prefill_attention": _packed_prefill,
+             "kv_block_quantize": _kv_quant,
+             "kv_block_dequantize": _kv_dequant,
+             "block_gather": _block_gather}
 
 
 def _on_cuda(t) -> bool:
@@ -33,12 +42,32 @@ def packed_prefill_attention(q, k_cache, v_cache, ctx_lens):
     return ref.packed_prefill_attention_ref(q, k_cache, v_cache, ctx_lens)
 
 
+def kv_block_quantize(blocks):
+    """(n, L, 2, bs, Hkv, hd) float -> (int8 vals, fp32 scales (n, L, 2))."""
+    if _on_cuda(blocks):
+        return _kv_quant(blocks)
+    return ref.kv_block_quantize_ref(blocks)
+
+
+def kv_block_dequantize(vals, scales):
+    """(int8 vals, fp32 scales) -> fp32 blocks of vals' shape."""
+    if _on_cuda(vals):
+        return _kv_dequant(vals, scales)
+    return ref.kv_block_dequantize_ref(vals, scales)
+
+
+def block_gather(pool, indices, block_dim: int = 0):
+    """Blocks ``indices`` of ``pool``'s axis ``block_dim``, moved to the
+    front (contiguous on the card)."""
+    if _on_cuda(pool):
+        return _block_gather(pool, indices, block_dim)
+    return ref.block_gather_ref(pool, indices, block_dim)
+
+
 def launch_counts() -> dict[str, int]:
     """Launches of each CUDA kernel since its counter was last reset."""
-    return {"paged_decode_attention": _paged_decode.launches,
-            "packed_prefill_attention": _packed_prefill.launches}
+    return {name: w.launches for name, w in _WRAPPERS.items()}
 
 
 def reset_launch_counts() -> None:
-    _paged_decode.launches = 0
-    _packed_prefill.launches = 0
+    build.reset_launches(_WRAPPERS.values())

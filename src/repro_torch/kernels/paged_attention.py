@@ -32,6 +32,10 @@ def check_tensor(name: str, t: torch.Tensor, device: torch.device,
         raise ValueError(f"{name} must be contiguous")
 
 
+def device_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
 def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths):
     """q: (B, H, hd); k/v_pages: (P, page, Hkv, hd); block_tables:
     (B, maxp) int32 (pad with 0); lengths: (B,) int32.  Returns (B, H, hd)
@@ -64,11 +68,10 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths):
         DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
         out.data_ptr(), b, h, hkv, hd, page, block_tables.shape[1],
-        1.0 / math.sqrt(hd), dev.index if dev.index is not None
-        else torch.cuda.current_device(),
+        1.0 / math.sqrt(hd), device_index(dev),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "paged_decode_attention")
-    paged_decode_attention.launches += 1
+    build.count_launch(paged_decode_attention)
     return out
 
 

@@ -64,3 +64,35 @@ def packed_prefill_attention_ref(q, k_cache, v_cache, ctx_lens):
     (S, Smax, Hkv, hd); ctx_lens: (S,).  Returns (S, Sq, H, hd)."""
     return chunked_prefill_attention_ref(q, k_cache, v_cache,
                                          ctx_lens + q.shape[1])
+
+
+def block_gather_ref(pool, indices, block_dim: int = 0):
+    """Blocks ``indices`` of ``pool``'s axis ``block_dim``, moved to the
+    front: pool (P, page, ...) -> (n, page, ...) for ``block_dim = 0``
+    (the JAX form); the port's pool (L, 2, N, bs, Hkv, hd) with
+    ``block_dim = 2`` -> (n, L, 2, bs, Hkv, hd)."""
+    idx = torch.as_tensor(indices).to(device=pool.device, dtype=torch.long)
+    return pool[(slice(None),) * block_dim + (idx,)].movedim(block_dim, 0)
+
+
+def kv_block_quantize_ref(blocks):
+    """Symmetric int8 per-(block, layer, k|v)-plane quantization.
+    blocks: (n, L, 2, bs, Hkv, hd) float -> (int8 vals same shape, fp32
+    scales (n, L, 2)).  The expression shapes are the reference's
+    (``x * inv``, the fp32 constant 1/127, round half to even), so the
+    result is bitwise that of ``repro.kernels.ref.kv_block_quantize_ref``."""
+    n, lyr, two = blocks.shape[:3]
+    x = blocks.reshape(n * lyr * two, -1).float()
+    scale = x.abs().amax(dim=1, keepdim=True) * (1.0 / 127.0)
+    inv = torch.where(scale > 0.0, 1.0 / scale, torch.zeros_like(scale))
+    q = torch.clamp(torch.round(x * inv), -127.0, 127.0).to(torch.int8)
+    return q.reshape(blocks.shape), scale.reshape(n, lyr, two)
+
+
+def kv_block_dequantize_ref(vals, scales):
+    """vals: (n, L, 2, bs, Hkv, hd) int8, scales: (n, L, 2) fp32 -> fp32
+    blocks; |x - dequant(quant(x))| <= scale / 2 per element."""
+    n, lyr, two = vals.shape[:3]
+    q = vals.reshape(n * lyr * two, -1)
+    out = q.float() * scales.reshape(n * lyr * two, 1)
+    return out.reshape(vals.shape)

@@ -4,6 +4,8 @@ point (counterpart of ``repro.launch.serve --mode real`` and
 
     python -m repro_torch.launch.serve --arch qwen1_5_0_5b
     python -m repro_torch.launch.serve --arch qwen1_5_0_5b --smoke --device cpu
+    python -m repro_torch.launch.serve --tiered             # bounded host tier
+    python -m repro_torch.launch.serve --tiered --exact-cold  # fp32 cold tier
 
 Random weights from ``--seed`` (nothing is downloaded).  Requests arrive in
 two waves: the first fills the paged pool with mid- and low-priority
@@ -15,6 +17,14 @@ lower-priority requests.  Prints the engine
 statistics, TTFT/TPOT per priority and TDG_Ratio.  On the card every
 attention call runs the hand-written CUDA kernels; ``--device cpu`` runs
 their plain PyTorch versions.
+
+The engine copies KV between the card and the host on its background
+transfer lanes (``--no-overlap``: synchronously).  ``--tiered`` serves
+the ``TIERED`` traffic: longer outputs, so that preempted requests hold
+mirrored blocks, and a host tier of ``host_tier_blocks`` blocks, so that
+host-tier groups demote into the int8 cold tier (``--exact-cold``: a raw
+fp32 cold tier) and prefix-cache evictions spill into the host tiers.
+``--host-tier-blocks N`` bounds the host tier of any traffic.
 """
 from __future__ import annotations
 
@@ -50,11 +60,22 @@ class Traffic:
     prefix_len: int = 64          # shared prompt prefix
     num_blocks: int = 160
     block_size: int = 16
+    host_tier_blocks: Optional[int] = None   # None: unbounded host tier
+    max_seqs: int = EngineConfig.max_seqs    # requests per batch
+    n_repeat: int = 0             # third wave: earlier prompts resent
 
 
 FULL = Traffic()
 SMOKE = Traffic(prompt_min=16, prompt_max=96, output_len=8, prefix_len=32,
                 num_blocks=28)
+# The tiered runs cap the batch at 6 requests, so that requests preempted
+# beyond the cap keep their host copies into the next step and reload, and
+# resend every earlier prompt once both waves are done, so that the prefix
+# cache's spilled nodes are matched and restored.
+TIERED = dataclasses.replace(FULL, output_len=48, host_tier_blocks=8,
+                             max_seqs=6, n_repeat=12)
+TIERED_SMOKE = dataclasses.replace(SMOKE, output_len=24, host_tier_blocks=4,
+                                   max_seqs=6, n_repeat=12)
 
 
 @dataclasses.dataclass
@@ -85,6 +106,16 @@ class ServeResult:
             "decode_launches": st.decode_launches,
             "packed_prefill_calls": st.packed_prefill_calls,
             "host_syncs": st.host_syncs,
+            "offload_blocks": st.offload_blocks,
+            "staged_hits": st.staged_hits,
+            "staged_misses": st.staged_misses,
+            "transfer_failures": st.transfer_failures,
+            "t_block_measured": st.t_block_measured,
+            "host_bytes": st.host_bytes,
+            "spill_blocks": st.spill_blocks,
+            "cold_blocks": st.cold_blocks,
+            "demoted_blocks": self.engine.pool.tier.demoted_blocks,
+            "cold_reload_blocks": self.engine.pool.tier.cold_reload_blocks,
             "preemptions": sum(r.preemptions for r in reqs),
             "tdg_ratio": tdg_ratio(reqs, w_p=W_P),
         }
@@ -101,9 +132,11 @@ class ServeResult:
 
 
 def make_requests(cfg: ArchConfig, traffic: Traffic,
-                  rng: np.random.Generator) -> tuple[list, list]:
-    """Two waves of (Request, prompt).  Every other first-wave request and
-    the first half of the second wave start with one shared prefix."""
+                  rng: np.random.Generator) -> tuple[list, list, list]:
+    """Three waves of (Request, prompt).  Every other first-wave request
+    and the first half of the second wave start with one shared prefix;
+    the third wave resends the first ``n_repeat`` prompts of the first two
+    waves, at their priorities."""
     prefix = rng.integers(1, cfg.vocab, traffic.prefix_len).astype(np.int32)
 
     def one(i: int, prio: int, shared: bool):
@@ -122,17 +155,39 @@ def make_requests(cfg: ArchConfig, traffic: Traffic,
     first = [one(i, 2 + i % 2, i % 2 == 0) for i in range(traffic.n_first)]
     second = [one(i, 1, i < traffic.n_second // 2 + traffic.n_second % 2)
               for i in range(traffic.n_second)]
-    return first, second
+    third = []
+    for r, prompt in (first + second)[:traffic.n_repeat]:
+        weight, ttft, tpot = PRIORITIES[r.priority]
+        third.append((Request(prompt_len=r.prompt_len,
+                              output_len=traffic.output_len, arrival=0.0,
+                              slo=SLO(ttft, tpot), priority=r.priority,
+                              weight=weight), prompt))
+    return first, second, third
+
+
+def block_bytes(cfg: ArchConfig, traffic: Traffic, dtype) -> int:
+    """Bytes of one KV block (all layers, K and V) in the pool's dtype."""
+    return (cfg.n_layers * 2 * traffic.block_size * cfg.n_kv_heads * cfg.hd
+            * torch.empty((), dtype=dtype).element_size())
 
 
 def serve(cfg: ArchConfig, params: dict, traffic: Traffic, *,
-          seed: int = 0, device="cuda",
-          max_iters: int = 10000) -> ServeResult:
-    """Run both waves through one ``Engine`` until every request is done."""
-    eng = Engine(cfg, params, EngineConfig(eta=1.0, w_p=W_P, tau=1e9),
+          seed: int = 0, device="cuda", max_iters: int = 10000,
+          overlap_transfers: bool = True,
+          cold_quantize: bool = True) -> ServeResult:
+    """Run the waves through one ``Engine`` until every request is done,
+    then wait for the background copies to land."""
+    tier_bytes = (None if traffic.host_tier_blocks is None else
+                  traffic.host_tier_blocks
+                  * block_bytes(cfg, traffic, params["embed"].dtype))
+    eng = Engine(cfg, params, EngineConfig(eta=1.0, w_p=W_P, tau=1e9,
+                                           max_seqs=traffic.max_seqs),
                  SlideBatching(), num_blocks=traffic.num_blocks,
-                 block_size=traffic.block_size, device=device)
-    first, second = make_requests(cfg, traffic, np.random.default_rng(seed))
+                 block_size=traffic.block_size, device=device,
+                 overlap_transfers=overlap_transfers,
+                 host_tier_bytes=tier_bytes, cold_quantize=cold_quantize)
+    first, second, third = make_requests(cfg, traffic,
+                                         np.random.default_rng(seed))
     arrived: dict[int, float] = {}
     emitted: dict[int, list] = {}
     t0 = time.monotonic()
@@ -153,20 +208,23 @@ def serve(cfg: ArchConfig, params: dict, traffic: Traffic, *,
         if eng.step() is None:
             break
         it += 1
-    for r, p in second:
-        r.arrival = eng.now
-        arrived[r.rid] = time.monotonic() - t0
-        eng.add_request(r, p)
-    eng.run_until_drained(max_iters=max_iters - it)
+    for wave in (second, third):
+        for r, p in wave:
+            r.arrival = eng.now
+            arrived[r.rid] = time.monotonic() - t0
+            eng.add_request(r, p)
+        # the third wave arrives once the first two are done
+        it += eng.run_until_drained(max_iters - it)
+    eng.flush_transfers()
     if eng.device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    unfinished = [r.rid for r, _ in first + second
+    unfinished = [r.rid for r, _ in first + second + third
                   if r.generated < r.output_len]
     if unfinished:
         raise RuntimeError(f"requests {unfinished} did not finish")
-    return ServeResult(cfg, params, eng, first + second, wall, arrived,
-                       emitted)
+    return ServeResult(cfg, params, eng, first + second + third, wall,
+                       arrived, emitted)
 
 
 def main(argv: Optional[list[str]] = None) -> ServeResult:
@@ -176,6 +234,16 @@ def main(argv: Optional[list[str]] = None) -> ServeResult:
                     help="reduced model and traffic (CPU-sized)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tiered", action="store_true",
+                    help="the TIERED traffic: bounded host tier, int8 cold "
+                         "tier, prefix-cache spill")
+    ap.add_argument("--host-tier-blocks", type=int, default=None,
+                    help="bound the host tier to N KV blocks")
+    ap.add_argument("--exact-cold", action="store_true",
+                    help="keep the cold tier in fp32 (cold_quantize=False)")
+    ap.add_argument("--no-overlap", action="store_true",
+                    help="copy KV synchronously instead of on the "
+                         "background transfer lanes")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -183,10 +251,18 @@ def main(argv: Optional[list[str]] = None) -> ServeResult:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
-    traffic = SMOKE if args.smoke else FULL
+    if args.tiered:
+        traffic = TIERED_SMOKE if args.smoke else TIERED
+    else:
+        traffic = SMOKE if args.smoke else FULL
+    if args.host_tier_blocks is not None:
+        traffic = dataclasses.replace(traffic,
+                                      host_tier_blocks=args.host_tier_blocks)
     params = init_params(cfg, torch.Generator(dev).manual_seed(args.seed),
                          device=dev)
-    res = serve(cfg, params, traffic, seed=args.seed, device=dev)
+    res = serve(cfg, params, traffic, seed=args.seed, device=dev,
+                overlap_transfers=not args.no_overlap,
+                cold_quantize=not args.exact_cold)
     where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
              else "cpu")
     print(json.dumps({"arch": cfg.name, "device": where,

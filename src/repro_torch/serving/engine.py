@@ -5,10 +5,17 @@ One ``Engine`` = one model replica.  Each iteration:
 
   1. the policy (``SlideBatching``, the same scheduling core the simulator
      runs) forms a batch against the BlockManager accounting;
-  2. eviction and reload directives are applied to the PagedKVPool: an
-     evicted request's surviving span is copied to host in one gather and
-     one device-to-host copy, and a reload is one batched host-to-device
-     scatter;
+  2. eviction and reload directives are applied to the PagedKVPool (host
+     mirrors, drops, restores).  With ``overlap_transfers`` (the default)
+     the copies run on a background worker (``serving/transfer.py``):
+     proactive offloads are enqueued as one-gather snapshots, reloads
+     consume pre-staged buffers, and completions feed the BlockManager's
+     accounting lanes and the measured ``t_block`` behind the §4.3
+     adaptive copy budget.  Without it an evicted request's surviving
+     span is copied to host in one gather and one device-to-host copy,
+     and a reload is one batched host-to-device scatter.  With
+     ``host_tier_bytes`` the host tier is bounded and demotes into an
+     int8 cold tier, and prefix-cache evictions spill into it;
   3. prefill chunks run PACKED — every request's chunk in one
      ``prefill_packed`` call — greedy-sampling the first token when a
      prompt completes; decode entries run as one fused ``decode_step``;
@@ -18,12 +25,10 @@ One ``Engine`` = one model replica.  Each iteration:
 Each model launch costs exactly one device-to-host fetch (the sampled
 tokens), counted in ``EngineStats.host_syncs``.
 
-Not ported yet (each raises ``NotImplementedError``): the background
-transfer lanes (``overlap_transfers=True``), the bounded host tier and
-int8 cold tier (``host_tier_bytes``), speculative decoding
-(``spec_draft`` / ``spec_k > 0``), the prefill / decode roles and their
-handoff (``role != "coloc"``, ``handoff_quantize``), and the per-request
-prefill and logits-decode fallbacks (``packed_prefill=False``,
+Not ported yet (each raises ``NotImplementedError``): speculative
+decoding (``spec_draft`` / ``spec_k > 0``), the prefill / decode roles
+and their handoff (``role != "coloc"``, ``handoff_quantize``), and the
+per-request prefill and logits-decode fallbacks (``packed_prefill=False``,
 ``fused_decode=False``).
 """
 from __future__ import annotations
@@ -45,6 +50,7 @@ from ..models.model import ArchConfig, require_dense, resolve_device
 from . import model_exec
 from .kv_pool import PagedKVPool
 from .prefix_cache import RadixPrefixCache
+from .transfer import TransferWorker
 
 logger = logging.getLogger(__name__)
 
@@ -60,11 +66,20 @@ class EngineStats:
     cache_insert_blocks: int = 0   # blocks adopted into the prefix cache
     cow_forks: int = 0             # copy-on-write forks of shared blocks
     packed_prefill_calls: int = 0  # batched multi-request prefill launches
+    offload_blocks: int = 0        # async D2H blocks landed on host
+    staged_hits: int = 0           # reloads served from pre-staged buffers
+    staged_misses: int = 0         # reloads that fell back to a sync copy
     transfer_wait_s: float = 0.0   # total step time stalled on sync copies
+    transfer_failures: int = 0     # background copies that raised (fell
+    # back to the synchronous path; the first one is logged by the worker)
+    t_block_measured: float = 0.0  # EWMA per-block copy time (closed loop)
     refit_failures: int = 0        # online estimator refits that failed
     decode_launches: int = 0       # decode_step calls (one per step with
     # decode work)
-    host_bytes: int = 0            # current host-tier bytes
+    host_bytes: int = 0            # current hot host-tier bytes (<= budget)
+    spill_blocks: int = 0          # cumulative prefix-cache blocks spilled
+    # to the host tier instead of destroyed (tiered KV cache)
+    cold_blocks: int = 0           # current int8 cold-tier blocks
     host_syncs: int = 0            # device->host fetches in the hot loop —
     # exactly one per model launch (no hidden syncs)
     # bounded: long-lived replicas must not grow without limit
@@ -86,9 +101,10 @@ class Engine:
                  prefix_cache: bool = True,
                  cache_blocks: Optional[int] = None,
                  packed_prefill: bool = True,
-                 overlap_transfers: bool = False,
+                 overlap_transfers: bool = True,
                  fused_decode: bool = True,
                  host_tier_bytes: Optional[int] = None,
+                 cold_quantize: bool = True,
                  role: str = "coloc",
                  handoff_quantize: bool = False,
                  spec_draft: Optional[tuple] = None,
@@ -101,8 +117,6 @@ class Engine:
             raise ValueError(f"unknown engine role: {role!r}")
         for flag, unported in (
                 ("role=" + repr(role), role != "coloc"),
-                ("overlap_transfers=True", overlap_transfers),
-                ("host_tier_bytes", host_tier_bytes is not None),
                 ("spec_draft", spec_draft is not None),
                 ("spec_k > 0", eng_cfg.spec_k > 0),
                 ("packed_prefill=False", not packed_prefill),
@@ -119,17 +133,40 @@ class Engine:
         self.params = params
         self.eng_cfg = eng_cfg
         self.policy = policy
+        # host_tier_bytes bounds the hot host tier (LRU demotion into the
+        # int8 cold tier, see kv_pool.KVTierStore); None = unbounded host
+        # mirror with bitwise-identical token streams
         self.pool = PagedKVPool(cfg, num_blocks, block_size,
                                 dtype=params["embed"].dtype,
-                                device=self.device)
+                                device=self.device,
+                                host_tier_bytes=host_tier_bytes,
+                                cold_quantize=cold_quantize)
         self.bm = BlockManager(num_blocks - 1, block_size, t_block,
                                **(bm_kwargs or {}))
         # radix prefix cache: shares prompt KV across requests (refcounted
         # blocks, CoW); holds at most ``cache_blocks`` beyond live pins and
-        # yields them back on demand (BlockManager.reclaim_cache)
+        # yields them back on demand (BlockManager.reclaim_cache).  With a
+        # bounded host tier, evictions SPILL into it instead of destroying
+        # the KV (restorable on a later match).
         self.cache: Optional[RadixPrefixCache] = (
-            RadixPrefixCache(self.pool, self.bm, max_blocks=cache_blocks)
+            RadixPrefixCache(self.pool, self.bm, max_blocks=cache_blocks,
+                             spill=host_tier_bytes is not None)
             if prefix_cache else None)
+        self.worker: Optional[TransferWorker] = (
+            TransferWorker(device=self.device) if overlap_transfers
+            else None)
+        if self.cache is not None:
+            # spill restores prefer buffers the worker pre-staged
+            self.cache.worker = self.worker
+        # per-rid transfer epoch: bumped on evict so background completions
+        # for a superseded residency generation are discarded
+        self._epoch: dict[int, int] = {}
+        # proactive-offload directives recorded during form_batch (the K/V
+        # they name is only fully written once the step's exec completes)
+        self._offload_directives: list[tuple[int, int, int, int]] = []
+        if self.worker is not None:
+            self.bm.external_lanes = True
+            self.bm.offload_sink = self._note_offload_directive
         self.est = est or BatchLatencyEstimator(
             a_p=1e-8, b_p=1e-8, c_p=1e-5, a_d=1e-8, b_d=1e-4, t_c=1e-3)
         # full token sequence (prompt + outputs) per request, appended
@@ -143,6 +180,7 @@ class Engine:
         self.stats = EngineStats()
         self._profile: list[tuple[list, float]] = []
         self.refit_every = 50
+        self.alive = True
         self.outputs: dict[int, list[int]] = {}
         # streaming hook: called as on_token(req, tok, first, last) at the
         # instant of emission
@@ -183,10 +221,147 @@ class Engine:
         return any(r.phase != Phase.FINISHED for r in self.queue)
 
     # ------------------------------------------------------------------
+    # §4.3 transfer lanes (background worker plumbing)
+    # ------------------------------------------------------------------
+    def _note_offload_directive(self, rid: int, start: int, n: int) -> None:
+        """BlockManager offload_sink: a proactive D2H mirror was scheduled
+        during form_batch.  The blocks' K/V is only written once this
+        step's exec completes, so just record the directive; the device
+        snapshot happens in ``_dispatch_offloads``."""
+        self._offload_directives.append(
+            (rid, start, n, self._epoch.get(rid, 0)))
+
+    def _dispatch_offloads(self) -> None:
+        """Snapshot each recorded directive's blocks (one device gather)
+        and hand them to the background D2H lane."""
+        directives, self._offload_directives = self._offload_directives, []
+        if self.worker is None:
+            return
+        for rid, start, n, epoch in directives:
+            if epoch != self._epoch.get(rid, 0):
+                continue            # evicted since the directive
+            t = self.pool.tables.get(rid)
+            if not t:
+                continue
+            logical = [bi for bi in range(start, start + n) if bi < len(t)]
+            if not logical:
+                continue
+            if self.pool.tier.prefer_cold(len(logical)):
+                # this mirror would land demote-bound in the cold tier:
+                # quantize on device so the D2H wire is int8 (~4x less)
+                gathered = self.pool.gather_blocks_quantized(rid, logical)
+            else:
+                gathered = self.pool.gather_blocks(rid, logical)
+            self.worker.offload(rid, epoch, logical, gathered)
+
+    def _drain_transfers(self) -> int:
+        """Collect background-copy completions; feed the accounting lanes
+        (real transfers replace the virtual clock) and the measured-
+        throughput side of the adaptive copy budget."""
+        if self.worker is None:
+            return 0
+        landed = 0
+        for d in self.worker.drain():
+            stale = d.epoch != self._epoch.get(d.rid, 0)
+            dead = d.rid not in self.bm.table
+            if d.kind == "h2d":
+                # a staging buffer that can no longer be consumed would pin
+                # one of the double-buffer slots forever: job finished after
+                # invalidate() (stale), after the request was released
+                # (dead), or after the reload it was staged for already ran
+                # synchronously (nothing left on host to restore)
+                if d.rid < 0:
+                    # radix-cache spill pseudo-rid: never in bm.table, so
+                    # ask the cache whether the spilled group still exists
+                    # (restore consumes the buffer; re-adoption/prune
+                    # invalidates it)
+                    if (self.cache is None
+                            or not self.cache.has_spilled(d.rid)):
+                        self.worker.invalidate(d.rid)
+                    continue
+                s = self.bm.table.get(d.rid)
+                if dead or (s is not None and s.host_tokens == 0):
+                    self.worker.invalidate(d.rid)
+                elif stale:
+                    self.worker.discard_stale(d.rid,
+                                              self._epoch.get(d.rid, 0))
+            if stale:
+                continue
+            if not d.ok:
+                self.stats.transfer_failures += 1
+                if d.kind == "d2h":
+                    # release the pending claim; mirroring retries later
+                    self.bm.note_offload_failed(d.rid, d.n_blocks)
+                continue
+            if d.kind == "d2h" and d.rid in self.bm.table:
+                self.pool.host_store(d.rid, d.blocks)
+                self.bm.note_offload_complete(d.rid, d.n_blocks)
+                self.stats.offload_blocks += d.n_blocks
+                landed += d.n_blocks
+            if not d.quantized:
+                # int8-wire copies are excluded: the copy budget scales
+                # them by COLD_WIRE_RATIO on top of the fp32 t_block, so
+                # folding their samples in would count the 4x twice
+                self.bm.observe_transfer(d.n_blocks, d.seconds)
+                self.stats.t_block_measured = self.bm.t_block
+        return landed
+
+    def _prefetch_reloads(self) -> None:
+        """Hint the H2D staging lane: evicted requests near the head of the
+        (policy-sorted) queue will likely reload next round, so stage their
+        host blocks now and the copy lands before the batch that needs
+        it.  Payloads go out in tier wire format: cold groups ship int8 and
+        the worker dequantizes on device.  Leftover slots stage the most
+        recently touched radix-cache spill groups."""
+        if self.worker is None:
+            return
+        hinted = 0
+        for r in self.queue:
+            if hinted >= self.worker.max_staged:
+                break
+            s = self.bm.table.get(r.rid)
+            if s is None or s.host_tokens <= 0 or s.dev_tokens > 0:
+                continue
+            nb = blocks_for(s.host_tokens, self.bm.block_size)
+            payloads = self.pool.tier.payloads(r.rid, range(nb))
+            if payloads is None:
+                continue
+            if self.worker.prefetch(r.rid, self._epoch.get(r.rid, 0),
+                                    payloads):
+                hinted += 1
+        if self.cache is not None and hinted < self.worker.max_staged:
+            for host_rid, payloads in self.cache.spill_candidates(
+                    self.worker.max_staged - hinted):
+                if self.worker.prefetch(host_rid, 0, payloads):
+                    hinted += 1
+
+    def _forget_transfers(self, rid: int) -> None:
+        """Invalidate all in-flight transfer state for rid (eviction)."""
+        self._epoch[rid] = self._epoch.get(rid, 0) + 1
+        if self.worker is not None:
+            self.worker.invalidate(rid)
+
+    def _sync_tier_state(self) -> None:
+        """Mirror the tier store into the scheduling layer: mark each live
+        request's host span cold when its tier group was demoted (the
+        copy-budget control then prices its reload at the int8 wire), and
+        refresh the tier gauges on EngineStats.  With an unbounded host
+        tier nothing is ever cold and this is a no-op on the accounting."""
+        tier = self.pool.tier
+        if tier.budget_bytes is not None:
+            for rid, s in self.bm.table.items():
+                s.cold_tokens = (s.host_tokens if tier.is_cold(rid) else 0)
+        self.stats.host_bytes = tier.host_bytes
+        self.stats.cold_blocks = tier.cold_blocks
+        if self.cache is not None:
+            self.stats.spill_blocks = self.cache.stats.spilled_blocks
+
     def _evict_to_host(self, r: Request) -> None:
-        """Apply one (already accounted) eviction to the data layer: copy
-        the surviving span's missing blocks to host in one batched device
-        fetch, then drop the device references."""
+        """Apply one (already accounted) eviction to the data layer: the
+        surviving span must be on host.  With overlap the async mirror
+        already landed (mirrored_blocks only counts real completions);
+        otherwise copy the missing blocks now, in one batched device
+        fetch.  Then drop the device references."""
         s = self.bm.state(r)
         keep_blocks = blocks_for(s.host_tokens, self.bm.block_size)
         if keep_blocks:
@@ -194,6 +369,7 @@ class Engine:
                        if not self.pool.tier.has_block(r.rid, bi)]
             self.pool.offload_blocks(r.rid, missing)
         self.pool.drop_device_blocks(r.rid)
+        self._forget_transfers(r.rid)
         self.stats.evictions += 1
 
     def _sync_pool_with_bm(self, plan: BatchPlan) -> None:
@@ -209,24 +385,31 @@ class Engine:
         self.now = max(self.now, time.monotonic() - epoch)
 
     def step(self) -> Optional[dict]:
+        if not self.alive:
+            return None
         if self._wall_epoch is not None:
             self.now = max(self.now, time.monotonic() - self._wall_epoch)
+        offload_landed = self._drain_transfers()
         self.bm.complete_offloads(self.now)
-        self.stats.host_bytes = self.pool.tier.host_bytes
+        self._sync_tier_state()
         view = SchedView(self.queue, self.bm, self.est, self.eng_cfg,
                          self.now)
         plan = self.policy.form_batch(view)
         if not plan.entries:
             # evictions can outlive a failed admission round: keep the
-            # pool consistent with the accounting before going idle
+            # pool consistent with the accounting before going idle, and
+            # use the idle gap to stage likely reloads
             if plan.evictions:
                 self._sync_pool_with_bm(plan)
+            self._offload_directives.clear()
+            self._prefetch_reloads()
             return None
         t0 = time.monotonic()
         self._sync_pool_with_bm(plan)
 
-        # reload data for requests whose plan restored host blocks: one
-        # synchronous batched copy per request
+        # reload data for requests whose plan restored host blocks; prefer
+        # the background lane's pre-staged buffers (the H2D copy already
+        # landed), falling back to a synchronous batched copy
         step_reload, step_wait = 0, 0.0
         for e in plan.entries:
             s = self.bm.state(e.req)
@@ -239,9 +422,24 @@ class Engine:
             if s.restore_pending > 0 and have < dev_blocks_needed and hb:
                 n = min(s.restore_pending, dev_blocks_needed - have)
                 s.restore_pending = 0
-                tr0 = time.monotonic()
-                self.pool.reload_blocks(e.req.rid, n)
-                step_wait += time.monotonic() - tr0
+                staged = (self.worker.take_staged(
+                    e.req.rid, self._epoch.get(e.req.rid, 0))
+                    if self.worker is not None else None)
+                if staged is not None and staged[0] > 0:
+                    # ``n`` also counts blocks this step will write fresh
+                    # (grown chunk/decode tokens); the staged buffer covers
+                    # exactly the restorable host prefix: consume what it
+                    # has, the rest is new capacity allocated at exec time
+                    # (as reload_blocks stops at the first non-host block)
+                    self.pool.reload_from_device(e.req.rid, staged[1],
+                                                 min(n, staged[0]))
+                    self.stats.staged_hits += 1
+                else:
+                    tr0 = time.monotonic()
+                    self.pool.reload_blocks(e.req.rid, n)
+                    step_wait += time.monotonic() - tr0
+                    if self.worker is not None:
+                        self.stats.staged_misses += 1
                 self.stats.reload_blocks += n
                 step_reload += n
         self.stats.transfer_wait_s += step_wait
@@ -269,11 +467,24 @@ class Engine:
         for r in finished:
             self.bm.release(r)
             self.pool.release(r.rid)
+            # drop all per-request transfer state: a late completion for
+            # this rid is caught by the dead-request guard in
+            # _drain_transfers (rid no longer in bm.table)
+            if self.worker is not None:
+                self.worker.invalidate(r.rid)
+            self._epoch.pop(r.rid, None)
             self._seqs.pop(r.rid, None)
             self._seq_fill.pop(r.rid, None)
         self.queue = [r for r in self.queue if r.phase != Phase.FINISHED]
+        # all K/V written and finished requests released: snapshot and
+        # enqueue the proactive D2H mirrors the policy scheduled (released
+        # requests' directives drop out via their empty tables), then
+        # stage likely reloads
+        self._dispatch_offloads()
+        self._prefetch_reloads()
         return {"emitted": emitted, "finished": finished,
                 "latency": latency, "plan": plan,
+                "offload_blocks": offload_landed,
                 "reload_blocks": step_reload,
                 "transfer_wait": step_wait}
 
@@ -443,10 +654,43 @@ class Engine:
                     exc_info=True)
         self._profile = self._profile[-200:]
 
-    def run_until_drained(self, max_iters: int = 10000) -> None:
-        it = 0
-        while self.has_work() and it < max_iters:
+    def flush_transfers(self, timeout: float = 30.0) -> bool:
+        """Wait for the background lanes to drain, then fold the completed
+        transfers into the accounting (tests / benchmarks)."""
+        if self.worker is None:
+            return True
+        ok = self.worker.flush(timeout)
+        self._drain_transfers()
+        return ok
+
+    def run_until_drained(self, max_iters: int = 10000) -> int:
+        """Step until every request is done; returns the steps taken.  A
+        step that forms no batch can still change the state (the evictions
+        it planned release prefix-cache pins), so one such idle step is
+        retried; two in a row mean nothing is schedulable.  (The reference
+        stops at the first idle step.)"""
+        idle = 0
+        for it in range(max_iters):
+            if not self.has_work():
+                return it
             if self.step() is None:
-                # idle but queued work exists only if nothing schedulable
-                break
-            it += 1
+                idle += 1
+                if idle == 2:
+                    return it + 1
+            else:
+                idle = 0
+        return max_iters
+
+    def kill(self) -> list[Request]:
+        """Stop the replica: stop the transfer worker and release every
+        unfinished request, which is returned (its ``instance`` cleared)."""
+        self.alive = False
+        if self.worker is not None:
+            self.worker.stop()
+        orphans = [r for r in self.queue if r.phase != Phase.FINISHED]
+        for r in orphans:
+            self.bm.release(r)
+            self.pool.release(r.rid)
+            r.instance = None
+        self.queue.clear()
+        return orphans

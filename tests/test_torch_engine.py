@@ -3,7 +3,9 @@ package's full-sequence ``forward`` on the same parameters and prompts:
 token for token, on the ``tests/test_engine_real.py`` scenarios (plain,
 preemption, sync offload / recompute-only), the port's two-wave serve
 traffic (prefix-cache hits), and every flag that is not ported yet
-raising ``NotImplementedError``."""
+raising ``NotImplementedError``.  The engine runs with its default
+background transfer lanes (``overlap_transfers=True``) unless a test says
+otherwise."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -77,8 +79,12 @@ def test_engine_matches_greedy_reference():
     reqs = [submit(eng, rng, int(rng.integers(8, 40)), 5) for _ in range(3)]
     eng.run_until_drained()
     check_streams(eng, reqs)
-    assert ops.launch_counts() == {"paged_decode_attention": 0,
-                                   "packed_prefill_attention": 0}
+    # CPU tensors take the plain versions: no CUDA kernel is launched
+    assert set(ops.launch_counts()) == {
+        "paged_decode_attention", "packed_prefill_attention",
+        "kv_block_quantize", "kv_block_dequantize", "block_gather"}
+    assert not any(ops.launch_counts().values())
+    eng.kill()
 
 
 def test_engine_preemption_roundtrip_exact():
@@ -110,6 +116,17 @@ def test_two_wave_serve_with_prefix_hits_exact():
     assert summary["requests"] == 12 and 0.0 <= summary["tdg_ratio"] <= 1.0
 
 
+def test_run_until_drained_retries_one_idle_step():
+    """An idle step (no batch formed) is retried once, since its planned
+    evictions can free what the next step schedules; two in a row stop."""
+    eng = make_engine(overlap_transfers=False)
+    steps = iter([None, {}, None, None, {}])
+    eng.has_work = lambda: True
+    eng.step = lambda: next(steps)
+    assert eng.run_until_drained(max_iters=10) == 4
+    assert next(steps) == {}
+
+
 def test_serve_entry_point_runs_on_cpu(capsys):
     res = serve.main(["--smoke", "--device", "cpu", "--seed", "1"])
     out = capsys.readouterr().out
@@ -118,7 +135,6 @@ def test_serve_entry_point_runs_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(overlap_transfers=True), dict(host_tier_bytes=1 << 20),
     dict(spec_draft=("cfg", "params")), dict(role="prefill"),
     dict(role="decode"), dict(packed_prefill=False),
     dict(fused_decode=False), dict(handoff_quantize=True)],
@@ -126,6 +142,19 @@ def test_serve_entry_point_runs_on_cpu(capsys):
 def test_unported_flags_raise(kwargs):
     with pytest.raises(NotImplementedError):
         make_engine(**kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(overlap_transfers=True), dict(overlap_transfers=False),
+    dict(host_tier_bytes=1 << 20), dict(cold_quantize=False)],
+    ids=lambda kw: next(iter(kw)) + "=" + str(next(iter(kw.values()))))
+def test_ported_transfer_and_tier_flags_are_accepted(kwargs):
+    eng = make_engine(**kwargs)
+    assert (eng.worker is not None) == kwargs.get("overlap_transfers", True)
+    assert eng.pool.tier.budget_bytes == kwargs.get("host_tier_bytes")
+    assert eng.pool.tier.cold_quantize == kwargs.get("cold_quantize", True)
+    assert eng.cache.spill == ("host_tier_bytes" in kwargs)
+    eng.kill()
 
 
 def test_unported_spec_k_and_families_raise():
@@ -138,6 +167,6 @@ def test_unported_spec_k_and_families_raise():
     with pytest.raises(ValueError):
         make_engine(role="router")
     from repro_torch.serving import PagedKVPool
-    with pytest.raises(NotImplementedError):
-        PagedKVPool(TCFG, 8, 16, device="cpu", host_tier_bytes=1 << 20)
+    pool = PagedKVPool(TCFG, 8, 16, device="cpu", host_tier_bytes=1 << 20)
+    assert pool.tier.budget_bytes == 1 << 20
     assert torch.float32 == TPARAMS["embed"].dtype

@@ -18,7 +18,9 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "import repro_torch, repro_torch.configs, repro_torch.core\n"
         "import repro_torch.models, repro_torch.kernels\n"
         "import repro_torch.serving, repro_torch.launch.serve\n"
-        "import repro_torch.kernels.build\n"
+        "import repro_torch.kernels.build, repro_torch.kernels.kv_quant\n"
+        "import repro_torch.kernels.block_gather\n"
+        "import repro_torch.serving.transfer\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'repro'\n"
         "             or m.startswith('repro.'))\n"

@@ -120,10 +120,90 @@ def test_cpu_tensors_never_launch_a_kernel():
             torch.zeros(3, 8, 2, 16), torch.zeros(1, 2, dtype=torch.int32),
             torch.ones(1, dtype=torch.int32)]
     tops.paged_decode_attention(*args)
-    assert tops.launch_counts() == {"paged_decode_attention": 0,
-                                    "packed_prefill_attention": 0}
+    blocks = torch.ones(1, 2, 2, 4, 1, 8)
+    tops.kv_block_dequantize(*tops.kv_block_quantize(blocks))
+    tops.block_gather(torch.zeros(3, 8, 2, 16), torch.tensor([2, 0]))
+    assert tops.launch_counts() == {
+        "paged_decode_attention": 0, "packed_prefill_attention": 0,
+        "kv_block_quantize": 0, "kv_block_dequantize": 0, "block_gather": 0}
     # the CUDA wrapper itself refuses CPU tensors instead of falling back
     with pytest.raises(ValueError):
         paged_decode_attention(*args)
     with pytest.raises(ValueError):
         tops.paged_decode_attention(*[a.to("meta") for a in args])
+
+
+def test_launch_counters_count_exactly_from_many_threads():
+    """The engine thread and the transfer worker launch at once: every
+    launch is counted (more threads than cores, a short switch
+    interval)."""
+    import os
+    import sys
+    import threading
+
+    from repro_torch.kernels import build
+
+    def wrapper():
+        pass
+
+    wrapper.launches = 0
+
+    def launch():
+        for _ in range(5000):
+            build.count_launch(wrapper)
+
+    n = (os.cpu_count() or 1) + 2
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=launch) for _ in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert wrapper.launches == 5000 * n
+    build.reset_launches([wrapper])
+    assert wrapper.launches == 0
+
+
+def test_first_build_runs_once_when_threads_race(monkeypatch):
+    """Threads that reach the first launch together build the library
+    once (stand-ins for nvcc and the loader: there is none here)."""
+    import ctypes
+    import threading
+    import time
+
+    from repro_torch.kernels import build
+
+    builds = []
+
+    class Lib:
+        def __getattr__(self, name):
+            fn = type("Fn", (), {})()
+            setattr(self, name, fn)
+            return fn
+
+    def fake_build(verbose=False):
+        builds.append(1)
+        time.sleep(0.05)
+        return ""
+
+    monkeypatch.setattr(build, "is_current", lambda: False)
+    monkeypatch.setattr(build, "build", fake_build)
+    monkeypatch.setattr(ctypes, "CDLL", lambda path: Lib())
+    build._load.cache_clear()
+    try:
+        libs = []
+        threads = [threading.Thread(target=lambda: libs.append(
+            build.library())) for _ in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+        assert not any(t.is_alive() for t in threads)
+        assert len(builds) == 1 and len({id(lib) for lib in libs}) == 1
+    finally:
+        build._load.cache_clear()
