@@ -3,8 +3,8 @@
     python3 chip_smoke.py            # needs one CUDA card; no arguments
     python3 chip_smoke.py --profile  # also: lanes off/on walls and host
                                      # profile, device time by kernel for
-                                     # the serve and tiered traffic
-                                     # (build/profile)
+                                     # the serve, tiered, spec and
+                                     # per-request traffic (build/profile)
 
 Phases (any failure exits non-zero; nothing is caught and continued):
   1. env     — the card's name and power limit (nvidia-smi), torch / CUDA.
@@ -17,10 +17,16 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                Qwen2-7B's GQA widths (H 28, Hkv 4, hd 128): attention at
                fp32 atol = rtol = 2e-5, the copy kernels (int8 quantize /
                dequantize of one demoted group of 8 blocks (8, 24, 2, 16,
-               16, 64), block gather) bitwise; then timed with CUDA events
-               beside the plain version and, where one PyTorch call
-               computes the same function, that call (a yardstick the port
-               never calls).
+               16, 64), block gather) bitwise.  The chunked prefill kernel
+               (a 512-token prompt ingest against a 1024-position staging
+               span) and the packed verify kernel (16 requests x 3 rows over
+               a 48-page table) at fp32 2e-5 and bf16 2e-2, and their JAX
+               contracts bitwise on the card: chunked per request = packed
+               per segment at cache_lens = ctx_lens + Sq; each verify row =
+               the decode row on tables[row_seg].  Then each kernel is
+               timed with CUDA events (cold and warm L2) beside the plain
+               version and, where one PyTorch call computes the same
+               function, that call (a yardstick the port never calls).
   4. serve   — the port's entry point ``repro_torch.launch.serve`` at the
                full width of Qwen1.5-0.5B (24 layers, fp32, random weights
                from seed 0): two waves of multi-priority requests with
@@ -43,6 +49,20 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                int8 cold tier every request completes, both kv_quant
                kernels launch as often as the tiers called them, and every
                quantized plane comes back within scale / 2.
+  6. spec    — ``serve --spec-k 2`` on the serve traffic, with a draft of
+               the target's weights and with one from seed 7: every stream
+               equals greedy forward; proposed = accepted + rejected; the
+               same-weights draft has at least 90 % accepted (each refuted
+               position printed with greedy forward's top-2 margin) and
+               fewer target decode launches than the serve phase; the
+               other draft has rejections.  The verify kernel launches
+               n_layers x the decode launches, the draft's decode rounds
+               and ingests add to the decode and chunked kernels, and host
+               syncs equal target launches + draft rounds.
+  7. per-request — ``serve --per-request`` (one prefill_chunk call per
+               chunk, the logits decode): exact streams; the chunked kernel
+               launches n_layers x the prefill_chunk calls; host syncs equal
+               decode launches + prompt completions.
 
 fp32 matmuls run in full fp32: TF32 is switched off for cuBLAS and cuDNN.
 The last two lines are the ``{"kernels": ...}`` JSON and the
@@ -65,6 +85,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12       # H100 SXM, fp32 outside the tensor cores
 TOL = dict(atol=2e-5, rtol=2e-5)
+BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 
 
 def fail(msg: str) -> None:
@@ -171,14 +192,25 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor,
     torch.cuda.synchronize()
     if rows is not None:
         got, want = rows(got), rows(want)
+    bf16 = got.dtype == torch.bfloat16
+    got, want = got.float(), want.float()
     err = float((got - want).abs().max())
     try:
-        torch.testing.assert_close(got, want, **TOL)
+        torch.testing.assert_close(got, want, **(BF16_TOL if bf16 else TOL))
     except AssertionError as e:
         fail(f"{name} disagrees with its plain version: {e}")
-    print(f"  {name}: max_abs_err {err:.3e} (fp32 atol=rtol=2e-5) ok",
+    print(f"  {name}: max_abs_err {err:.3e} ("
+          f"{'bf16 atol=rtol=2e-2' if bf16 else 'fp32 atol=rtol=2e-5'}) ok",
           flush=True)
     return err
+
+
+def bitwise(name: str, got: torch.Tensor, want: torch.Tensor) -> None:
+    """A kernel against another kernel that must give the same bits."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.equal(got, want):
+        fail(f"{name}: not bitwise equal")
+    print(f"  {name}: bitwise equal", flush=True)
 
 
 def sdpa_inputs(q, kc, vc, ctx):
@@ -281,6 +313,8 @@ def kernels_phase(dev) -> dict:
                 shape="q %s kv %s ctx %s" % (
                     tuple(q.shape), tuple(kc.shape), c["prefill"][-1])),
         }
+        if label == "qwen1.5-0.5b":
+            results[label].update(slice3_kernels(rng, dev, p_args))
         for name, r in results[label].items():
             print(f"  {name}: kernel {r['ms']:.4f} ms (warm L2 "
                   f"{r['warm_l2_ms']:.4f} ms), plain "
@@ -288,6 +322,141 @@ def kernels_phase(dev) -> dict:
                   f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) "
                   f"[{r['shape']}]", flush=True)
     return results
+
+
+def verify_case(rng, n_seg, depth, h, hkv, hd, page, n_pages, maxp, base,
+                dev):
+    """The engine's verify launch: n_seg requests of depth + 1 rows each
+    (row j at length base + j + 1), rows padded to seg_bucket, the compact
+    table to seg_bucket(n_seg + 1) rows (padding rows point at a zero
+    row with length 0), pages one layer plane of the pool."""
+    from repro_torch.serving.model_exec import seg_bucket
+    t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=dev)
+    n_rows = n_seg * (depth + 1)
+    r_b, s_b = seg_bucket(n_rows), seg_bucket(n_seg + 1)
+    bt = np.zeros((s_b, maxp), np.int32)
+    bt[:n_seg] = rng.integers(1, n_pages, (n_seg, maxp))
+    seg = np.full(r_b, n_seg, np.int32)
+    seg[:n_rows] = np.repeat(np.arange(n_seg), depth + 1)
+    lens = np.zeros(r_b, np.int32)
+    lens[:n_rows] = (np.repeat(base, depth + 1)
+                     + np.tile(np.arange(depth + 1), n_seg) + 1)
+    return ((t(rng.standard_normal((r_b, h, hd))),
+             t(rng.standard_normal((n_pages, page, hkv, hd))),
+             t(rng.standard_normal((n_pages, page, hkv, hd))),
+             t(bt, torch.int32), t(lens, torch.int32)),
+            torch.as_tensor(seg))
+
+
+def verify_bound(q, kp, bt, lens, seg) -> tuple[float, str]:
+    """Least time for a verify launch: each request's live K/V (its
+    longest row) read once, q, the tables, lengths and row map read once,
+    the output written once; 4 flops per (query head, position a row
+    sees, dim)."""
+    r, h, hd = q.shape
+    hkv = kp.shape[2]
+    longest: dict = {}
+    for s_, n in zip(seg.tolist(), lens.tolist()):
+        longest[s_] = max(longest.get(s_, 0), n)
+    live = sum(longest.values())
+    nbytes = (2 * live * hkv * hd + 2 * r * h * hd) * 4 \
+        + bt.numel() * 4 + 2 * lens.numel() * 4
+    flops = 4 * int(lens.sum()) * h * hd
+    return bound(nbytes, flops)
+
+
+def slice3_kernels(rng, dev, p_args) -> dict:
+    """Kernels 3 and 4 at the main path's shapes (Qwen1.5-0.5B): fp32 and
+    bf16 against their plain versions; the JAX contracts bitwise on the
+    card (chunked per request = packed per segment at ctx + Sq, each
+    verify row = the decode row on its gathered table); times."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.chunked_prefill import (
+        chunked_prefill_attention, packed_prefill_attention)
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    from repro_torch.kernels.spec_verify import packed_verify_attention
+
+    print("  -- chunked prefill and packed verify (Qwen1.5-0.5B)",
+          flush=True)
+    # a draft's prompt ingest: bucket(n) = 512 queries of a fresh prompt
+    # against the 1024-position staging span; cache_lens include the chunk
+    c_args = prefill_case(rng, 1, 512, 1024, 16, 16, 64, [512], dev)
+    c_err = compare("chunked_prefill_attention",
+                    chunked_prefill_attention(*c_args),
+                    ref.chunked_prefill_attention_ref(*c_args))
+    tail = prefill_case(rng, 1, 16, 1024, 16, 16, 64, [336], dev)
+    compare("chunked_prefill_attention (16-token chunk after 320)",
+            chunked_prefill_attention(*tail),
+            ref.chunked_prefill_attention_ref(*tail))
+    c_bf = [a.bfloat16() if a.is_floating_point() else a for a in c_args]
+    compare("chunked_prefill_attention (bf16)",
+            chunked_prefill_attention(*c_bf),
+            ref.chunked_prefill_attention_ref(*c_bf))
+    # 16 requests at depth 2 (48 rows), a 48-page table bucket
+    base = [1, 2, 15, 16, 17, 64, 100, 200, 333, 400, 512, 513, 600, 700,
+            764, 765]
+    v_args, seg = verify_case(rng, 16, 2, 16, 16, 64, 16, 160, 48, base,
+                              dev)
+    v_err = compare("packed_verify_attention",
+                    packed_verify_attention(*v_args, seg),
+                    ref.packed_verify_attention_ref(*v_args, seg))
+    v_bf = [a.bfloat16() if a.is_floating_point() else a for a in v_args]
+    compare("packed_verify_attention (bf16)",
+            packed_verify_attention(*v_bf, seg),
+            ref.packed_verify_attention_ref(*v_bf, seg))
+    for label, args in (("fp32", v_args), ("bf16", v_bf)):
+        q, kp, vp, bt, ln = args
+        bitwise(f"packed_verify_attention rows = paged_decode_attention on "
+                f"tables[row_seg] ({label})",
+                packed_verify_attention(*args, seg),
+                paged_decode_attention(q, kp, vp, bt[seg.to(dev).long()]
+                                       .contiguous(), ln))
+    for label, args in (("fp32", p_args), ("bf16", [
+            a.bfloat16() if a.is_floating_point() else a for a in p_args])):
+        q, kc, vc, ctx = args
+        packed = packed_prefill_attention(*args)
+        one = torch.stack([chunked_prefill_attention(
+            q[i:i + 1], kc[i:i + 1], vc[i:i + 1], ctx[i:i + 1] + q.shape[1])[0]
+            for i in range(q.shape[0])])
+        bitwise(f"chunked_prefill_attention per request = "
+                f"packed_prefill_attention per segment ({label}, "
+                f"{q.shape[0]} segments)", one, packed)
+
+    q, kc, vc, cl = c_args
+    sdpa = sdpa_inputs(q, kc, vc, cl - q.shape[1])
+    c_k, c_p = turns(lambda: chunked_prefill_attention(*c_args),
+                     lambda: ref.chunked_prefill_attention_ref(*c_args))
+    v_k, v_p = turns(lambda: packed_verify_attention(*v_args, seg),
+                     lambda: ref.packed_verify_attention_ref(*v_args, seg))
+    c_bound = prefill_bound(q, kc, cl - q.shape[1])
+    v_bound = verify_bound(v_args[0], v_args[1], v_args[3], v_args[4], seg)
+    return {
+        # library: one SDPA call with the offset causal mask computes the
+        # same function (never called by the port)
+        "chunked_prefill_attention": dict(
+            max_abs_err=c_err, ms=float(np.mean(c_k)),
+            warm_l2_ms=time_ms(lambda: chunked_prefill_attention(*c_args),
+                               cold_l2=False),
+            plain_ms=float(np.mean(c_p)), library_ms=time_ms(
+                lambda: F.scaled_dot_product_attention(
+                    sdpa[0], sdpa[1], sdpa[2], attn_mask=sdpa[3],
+                    enable_gqa=True)),
+            bound_ms=c_bound[0], bound_by=c_bound[1],
+            shape=f"q {tuple(q.shape)} kv {tuple(kc.shape)} cache_lens "
+                  f"{cl.tolist()}"),
+        # library: none; no PyTorch call reads a paged pool through a
+        # block table (as for paged_decode_attention)
+        "packed_verify_attention": dict(
+            max_abs_err=v_err, ms=float(np.mean(v_k)),
+            warm_l2_ms=time_ms(lambda: packed_verify_attention(*v_args, seg),
+                               cold_l2=False),
+            plain_ms=float(np.mean(v_p)), library_ms=None,
+            bound_ms=v_bound[0], bound_by=v_bound[1],
+            shape=f"q {tuple(v_args[0].shape)} pages "
+                  f"{tuple(v_args[1].shape)} tables {tuple(v_args[3].shape)}"
+                  f", 16 requests x 3 rows, l_kv {base}"),
+    }
 
 
 def exact(name: str, got, want) -> float:
@@ -423,7 +592,8 @@ def check_streams(res, label: str) -> None:
                 fail(f"{label}: rid {r.rid} (priority {r.priority}) != "
                      "greedy forward")
             continue
-        cur = torch.as_tensor(prompt, dtype=torch.long, device="cuda")[None]
+        cur = torch.as_tensor(prompt, dtype=torch.long,
+                              device=res.engine.device)[None]
         for pos in range(r.output_len):
             logits = forward(cfg, params, cur, last_only=True)[0, -1]
             want = int(logits.argmax())
@@ -440,16 +610,31 @@ def check_streams(res, label: str) -> None:
 
 
 def check_launches(res, counts: dict, label: str) -> None:
-    """Each attention kernel launched n_layers x the engine's launches of
-    its step; each copy kernel exactly as often as the pool, the tier
-    store and the transfer worker called it; one host sync per model
-    launch."""
+    """Each attention kernel launched n_layers x the model calls of its
+    kind: the target's decode launches (decode, or verify when
+    speculating), packed prefill calls and per-request prefill_chunk
+    calls, and the draft's decode rounds (its syncs) and prompt ingests
+    (its other launches); each copy kernel exactly as often as the pool,
+    the tier store and the transfer worker called it; one host sync per
+    sampling launch: target decode launches, packed prefill calls, draft
+    decode rounds and, on the per-request path, prompt completions (one
+    per request)."""
     eng = res.engine
     st, pool, n_layers = eng.stats, eng.pool, res.cfg.n_layers
     deq_worker = eng.worker.dequantize_calls if eng.worker else 0
+    draft = eng.draft
+    d_layers = draft.cfg.n_layers if draft else 0
+    d_rounds = draft.syncs if draft else 0
+    d_ingests = draft.launches - draft.syncs if draft else 0
     want = {
-        "paged_decode_attention": n_layers * st.decode_launches,
+        "paged_decode_attention": (0 if draft else n_layers
+                                   * st.decode_launches)
+        + d_layers * d_rounds,
+        "packed_verify_attention": n_layers * st.decode_launches
+        if draft else 0,
         "packed_prefill_attention": n_layers * st.packed_prefill_calls,
+        "chunked_prefill_attention": n_layers * st.prefill_chunk_calls
+        + d_layers * d_ingests,
         "block_gather": pool.gather_calls,
         "kv_block_quantize": pool.quantize_calls + pool.tier.quantize_calls,
         "kv_block_dequantize": (pool.dequantize_calls
@@ -459,9 +644,14 @@ def check_launches(res, counts: dict, label: str) -> None:
         if counts[name] != n:
             fail(f"{label}: {name} launched {counts[name]} times, its "
                  f"callers counted {n}")
-    if st.host_syncs != st.decode_launches + st.packed_prefill_calls:
-        fail(f"{label}: host syncs {st.host_syncs} != decode launches + "
-             "packed prefill calls")
+    completions = 0 if eng.packed_prefill else len(res.requests)
+    syncs = (st.decode_launches + st.packed_prefill_calls + d_rounds
+             + completions)
+    if st.host_syncs != syncs:
+        fail(f"{label}: host syncs {st.host_syncs} != decode launches "
+             f"{st.decode_launches} + packed prefill calls "
+             f"{st.packed_prefill_calls} + draft rounds {d_rounds} + prompt "
+             f"completions {completions}")
     if st.transfer_failures:
         fail(f"{label}: {st.transfer_failures} background copies failed")
 
@@ -483,7 +673,9 @@ def report(res, counts: dict, label: str, card: str) -> None:
             "packed_prefill_calls", "host_syncs", "offload_blocks",
             "staged_hits", "staged_misses", "transfer_failures",
             "t_block_measured", "host_bytes", "spill_blocks", "cold_blocks",
-            "demoted_blocks", "cold_reload_blocks")
+            "demoted_blocks", "cold_reload_blocks", "prefill_chunk_calls",
+            "spec_proposed", "spec_accepted", "spec_rejected",
+            "draft_launches", "spec_depth_hist")
     print(f"  [{card}] " + ", ".join(f"{k} {summary[k]}" for k in keys)
           + f", transfer_wait_s {st.transfer_wait_s:.4f}", flush=True)
     cs = res.engine.cache.stats
@@ -529,7 +721,117 @@ def serve_phase(card: str):
     check_launches(off, counts_off, "serve, lanes off")
     check_streams(off, "serve, lanes off")
     off.engine.kill()
-    return counts, counts_off
+    return counts, counts_off, st.decode_launches
+
+
+class Refutations:
+    """Records each verify outcome with a refuted proposal (request,
+    output index of the refuted token) by wrapping ``DraftRunner.observe``
+    on its class for one run."""
+
+    def __init__(self):
+        from repro_torch.serving.spec import DraftRunner
+        self.cls, self.orig, self.seen = DraftRunner, DraftRunner.observe, []
+
+    def __enter__(self):
+        orig, seen = self.orig, self.seen
+
+        def observe(runner, rid, depth, accepted):
+            tgt = runner._pending.get(rid)
+            if tgt is not None and accepted < depth:
+                seen.append((rid, tgt + 1 + accepted))
+            return orig(runner, rid, depth, accepted)
+
+        self.cls.observe = observe
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.observe = self.orig
+
+
+def refuted_margins(res, seen) -> list:
+    """Greedy forward's top-2 logit margin at each refuted position: a
+    same-weights draft is refuted only where the two forwards' argmax
+    differ, which a small margin explains."""
+    from repro_torch.models.model import forward
+    prompts = {r.rid: p for r, p in res.requests}
+    out = []
+    for rid, pos in seen:
+        prompt = prompts[rid]
+        seq = np.concatenate([prompt, res.engine.outputs[rid]])[:pos]
+        logits = forward(res.cfg, res.params, torch.as_tensor(
+            seq, dtype=torch.long, device=res.engine.device)[None],
+            last_only=True)
+        top2 = torch.topk(logits[0, -1], 2).values
+        out.append((rid, pos - len(prompt), float(top2[0] - top2[1])))
+    return out
+
+
+def spec_phase(card: str, plain_decode_launches: int):
+    """Speculative decoding (``--spec-k 2``) on the serve traffic, with a
+    draft of the target's own weights and with one from another seed."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    runs = {}
+    for draft in ("same", "other"):
+        label = f"spec, {draft} draft"
+        print(f"  -- {label}", flush=True)
+        ops.reset_launch_counts()
+        with Refutations() as refuted:
+            res = serve.main(["--arch", "qwen1_5_0_5b", "--device", "cuda",
+                              "--seed", "0", "--spec-k", "2", "--draft",
+                              draft])
+        counts = ops.launch_counts()
+        report(res, counts, label, card)
+        st, drf = res.engine.stats, res.engine.draft
+        print(f"  [{card}] {label}: proposed {st.spec_proposed}, accepted "
+              f"{st.spec_accepted}, rejected {st.spec_rejected}, depth "
+              f"histogram {dict(sorted(st.spec_depth_hist.items()))}, target "
+              f"decode launches {st.decode_launches} (spec off: "
+              f"{plain_decode_launches}), draft launches {drf.launches} "
+              f"({drf.syncs} decode rounds)", flush=True)
+        if st.spec_proposed <= 0:
+            fail(f"{label}: nothing was proposed")
+        if st.spec_proposed != st.spec_accepted + st.spec_rejected:
+            fail(f"{label}: proposed != accepted + rejected")
+        if draft == "same":
+            for rid, idx, margin in refuted_margins(res, refuted.seen):
+                print(f"  refuted: rid {rid} output {idx}: greedy top-2 "
+                      f"logit margin {margin:.3e}", flush=True)
+            if st.spec_accepted < 0.9 * st.spec_proposed:
+                fail(f"{label}: accepted {st.spec_accepted} of "
+                     f"{st.spec_proposed} proposals (< 90 %)")
+            if st.decode_launches >= plain_decode_launches:
+                fail(f"{label}: {st.decode_launches} target decode launches,"
+                     f" not fewer than spec off ({plain_decode_launches})")
+        elif st.spec_rejected <= 0:
+            fail(f"{label}: an other-seed draft had nothing rejected")
+        check_launches(res, counts, label)
+        check_streams(res, label)
+        res.engine.kill()
+        runs[draft] = counts
+    return runs["same"], runs["other"]
+
+
+def per_request_phase(card: str):
+    """The reference's fallback paths (``--per-request``): one
+    prefill_chunk call per prefill chunk and the logits decode."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    ops.reset_launch_counts()
+    res = serve.main(["--arch", "qwen1_5_0_5b", "--device", "cuda",
+                      "--seed", "0", "--per-request"])
+    counts = ops.launch_counts()
+    report(res, counts, "per-request", card)
+    st = res.engine.stats
+    if st.prefill_chunk_calls < 1 or st.packed_prefill_calls:
+        fail("per-request: prefill did not run per request")
+    check_launches(res, counts, "per-request")
+    check_streams(res, "per-request")
+    res.engine.kill()
+    return counts
 
 
 # |x - dequant(quant(x))| <= scale / 2 exactly; in fp32 three roundings of
@@ -738,9 +1040,11 @@ def host_profile(cfg, params, out_dir: Path) -> None:
 def profile_phase(out_dir: Path) -> None:
     """Runs only with ``--profile``.  (1) The serve traffic with the
     transfer lanes off and on, in turns (off, on, on, off): the walls;
-    then six more turns with the host parts timed (``host_profile``).  (2) The serve
-    traffic and the tiered traffic (exact cold tier) each
-    served twice more, the second time under torch.profiler: device time
+    then six more turns with the host parts timed (``host_profile``).
+    (2) The serve traffic, the tiered traffic (exact cold tier), the serve
+    traffic speculating with a same-weights draft and on the per-request
+    paths, each served twice more, the second time under torch.profiler:
+    device time
     by kernel, the share of the three copy kernels, the device's busy
     share of the first (unprofiled) run's wall, and the copy engines'
     time (memcpy rows, which overlap the kernels on the copy stream);
@@ -769,7 +1073,12 @@ def profile_phase(out_dir: Path) -> None:
     host_profile(cfg, params, out_dir)
     for label, traffic, kw in (("serve", serve.FULL, {}),
                                ("tiered", serve.TIERED,
-                                {"cold_quantize": False})):
+                                {"cold_quantize": False}),
+                               ("spec", serve.FULL,
+                                {"spec_k": 2, "draft": (cfg, params)}),
+                               ("per-request", serve.FULL,
+                                {"packed_prefill": False,
+                                 "fused_decode": False})):
         plain_wall = run(traffic, **kw).wall_s
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -802,7 +1111,9 @@ def profile_phase(out_dir: Path) -> None:
               f"{100 * copy / busy:.2f} % of kernel time; memcpy (copy "
               f"engines) {memcpy:.3f} s; iterations {st.iterations}, "
               f"decode launches {st.decode_launches}, packed prefill calls "
-              f"{st.packed_prefill_calls}", flush=True)
+              f"{st.packed_prefill_calls}, prefill_chunk calls "
+              f"{st.prefill_chunk_calls}, draft launches "
+              f"{st.draft_launches}", flush=True)
         for dev_us, key, count in rows[:25]:
             print(f"  {dev_us / 1e3:10.3f} ms {100 * dev_us / 1e6 / busy:5.1f}"
                   f" % x{count:6d}  {key[:90]}", flush=True)
@@ -852,10 +1163,16 @@ def main() -> None:
     kres = kernels_phase(dev)
 
     phase("serve")
-    counts, counts_off = serve_phase(card)
+    counts, counts_off, plain_decode = serve_phase(card)
 
     phase("tiered")
     counts_a, counts_b = tiered_phase(card)
+
+    phase("spec")
+    counts_same, counts_other = spec_phase(card, plain_decode)
+
+    phase("per-request")
+    counts_pr = per_request_phase(card)
 
     if "--profile" in sys.argv[1:]:
         phase("profile")
@@ -869,6 +1186,12 @@ def main() -> None:
         "packed_prefill_attention": dict(
             source="src/repro_torch/csrc/packed_prefill.cu",
             replaces="src/repro/kernels/chunked_prefill.py:148"),
+        "chunked_prefill_attention": dict(
+            source="src/repro_torch/csrc/packed_prefill.cu",
+            replaces="src/repro/kernels/chunked_prefill.py:204"),
+        "packed_verify_attention": dict(
+            source="src/repro_torch/csrc/paged_attention.cu",
+            replaces="src/repro/kernels/spec_verify.py:90"),
         "kv_block_quantize": dict(
             source="src/repro_torch/csrc/kv_quant.cu",
             replaces="src/repro/kernels/kv_quant.py:55"),
@@ -880,15 +1203,18 @@ def main() -> None:
             replaces="src/repro/kernels/block_gather.py:23"),
     }
     # launches: the main paths' runs (serve with the lanes on and off,
-    # tiered (a), tiered (b)), each read right after its run with the
-    # counts set to 0 just before it
-    runs = (counts, counts_off, counts_a, counts_b)
-    launches = {name: sum(c[name] for c in runs) for name in meta}
+    # tiered (a), tiered (b), spec with both drafts, per-request), each
+    # read right after its run with the counts set to 0 just before it
+    runs = {"serve": counts, "serve, lanes off": counts_off,
+            "tiered (a)": counts_a, "tiered (b)": counts_b,
+            "spec, same draft": counts_same,
+            "spec, other draft": counts_other, "per-request": counts_pr}
+    launches = {name: sum(c[name] for c in runs.values()) for name in meta}
     for name, n in launches.items():
         if n < 1:
             fail(f"{name} never launched on the main paths")
-    print(f"  launches: serve {counts}; serve, lanes off {counts_off}; "
-          f"tiered (a) {counts_a}; tiered (b) {counts_b}", flush=True)
+    print("  launches: " + "; ".join(f"{k} {v}" for k, v in runs.items()),
+          flush=True)
     line = {"kernels": [
         {"name": name, "route": "cuda", **meta[name],
          "launches": launches[name],

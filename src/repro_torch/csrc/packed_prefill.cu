@@ -1,11 +1,22 @@
-// Packed multi-request prefill attention for Hopper (sm_90a).
+// Packed multi-request and per-request chunked prefill attention for
+// Hopper (sm_90a): one kernel body, two C entry points.
 //
-// Replaces the TPU kernel repro/kernels/chunked_prefill.py
-// `packed_prefill_attention` (body `_packed_kernel`): S segments (request
-// chunks) of Sq queries each attend to their staged caches
-// (S, Smax, Hkv, hd).  Query row r of segment s sits at absolute position
-// ctx_lens[s] + r and sees keys k_pos <= ctx_lens[s] + r (causal + length
-// mask); keys past the causal horizon ctx + Sq - 1 are never visited.
+// Replaces two TPU kernels of repro/kernels/chunked_prefill.py:
+//  * `packed_prefill_attention` (body `_packed_kernel`), entry
+//    proserve_packed_prefill: S segments (request chunks) of Sq queries
+//    each attend to their staged caches (S, Smax, Hkv, hd).  Query row r of
+//    segment s sits at absolute position ctx = ctx_lens[s] plus r.
+//  * `chunked_prefill_attention` (body `_kernel`), entry
+//    proserve_chunked_prefill: B requests' chunks against their contiguous
+//    staged caches, with lengths that include the chunk, so query row r of
+//    request b sits at ctx = cache_lens[b] - Sq plus r.
+// Both see keys k_pos <= ctx + r (causal + length mask); keys past the
+// causal horizon ctx + Sq - 1 are never visited.  The two entries differ
+// only in the ctx_sub they pass (0 or Sq), so the JAX contract "packed
+// equals S separate chunked calls bit for bit, with cache_lens = ctx_lens
+// + Sq" holds on the card by construction.  A chunked row with ctx + r < 0
+// (cache_lens < Sq) has no valid key: it keeps l = 0, acc = 0 and writes
+// acc / max(l, 1e-30) = 0, as the TPU kernel does.
 //
 // What bounds it on the card: arithmetic.  A chunk of Sq queries against a
 // context of n keys does about 4 * Sq * n * hd * G flops on
@@ -61,7 +72,8 @@ __global__ void __launch_bounds__(THREADS)
 packed_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v,
                       const int* __restrict__ ctx_lens, T* __restrict__ out,
-                      int Sq, int H, int Hkv, int Smax, float scale) {
+                      int Sq, int H, int Hkv, int Smax, int ctx_sub,
+                      float scale) {
   constexpr int HALF = HD / 2;   // dims per thread
   constexpr int CHUNKS = HD / 8;  // 4-float chunks per thread
   const int seg = blockIdx.z;
@@ -75,7 +87,7 @@ packed_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const bool active = row < rows;
   const int g = active ? row / Sq : 0;
   const int r = active ? row % Sq : 0;
-  const int ctx = ctx_lens[seg];
+  const int ctx = ctx_lens[seg] - ctx_sub;
   const int q_pos = ctx + r;
 
   // this thread owns dims 8c + 4*half + e, c < CHUNKS, e < 4
@@ -94,8 +106,10 @@ packed_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // the block's causal horizon: the largest r among its rows
   const int last = min(r0 + BQ, rows) - 1;
   const int r_max = (last / Sq != r0 / Sq) ? Sq - 1 : last % Sq;
+  // BK depends only on HD, so a row's tiles (and the order of its sums) do
+  // not depend on which entry point launched it
   const int horizon = min(Smax - 1, ctx + r_max);
-  const int n_tiles = horizon / BK + 1;
+  const int n_tiles = horizon < 0 ? 0 : horizon / BK + 1;
 
   __shared__ __align__(16) float ks[BK][HD];
   __shared__ __align__(16) float vs[BK][HD];
@@ -175,61 +189,87 @@ packed_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* ctx_lens, void* out, int S, int Sq, int H,
-                   int Hkv, int Smax, float scale, cudaStream_t stream) {
+                   int Hkv, int Smax, int ctx_sub, float scale,
+                   cudaStream_t stream) {
   constexpr int BK = HD >= 128 ? 16 : 32;
   const int G = H / Hkv;
   dim3 grid((G * Sq + BQ - 1) / BQ, Hkv, S);
   packed_prefill_kernel<T, HD, BK><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), ctx_lens, static_cast<T*>(out), Sq, H, Hkv,
-      Smax, scale);
+      Smax, ctx_sub, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t by_dim(const void* q, const void* k, const void* v,
                    const int* ctx_lens, void* out, int S, int Sq, int H,
-                   int Hkv, int hd, int Smax, float scale, cudaStream_t st) {
+                   int Hkv, int hd, int Smax, int ctx_sub, float scale,
+                   cudaStream_t st) {
   switch (hd) {
     case 16:
-      return launch<T, 16>(q, k, v, ctx_lens, out, S, Sq, H, Hkv, Smax, scale,
-                           st);
+      return launch<T, 16>(q, k, v, ctx_lens, out, S, Sq, H, Hkv, Smax,
+                           ctx_sub, scale, st);
     case 32:
-      return launch<T, 32>(q, k, v, ctx_lens, out, S, Sq, H, Hkv, Smax, scale,
-                           st);
+      return launch<T, 32>(q, k, v, ctx_lens, out, S, Sq, H, Hkv, Smax,
+                           ctx_sub, scale, st);
     case 64:
-      return launch<T, 64>(q, k, v, ctx_lens, out, S, Sq, H, Hkv, Smax, scale,
-                           st);
+      return launch<T, 64>(q, k, v, ctx_lens, out, S, Sq, H, Hkv, Smax,
+                           ctx_sub, scale, st);
     case 128:
       return launch<T, 128>(q, k, v, ctx_lens, out, S, Sq, H, Hkv, Smax,
-                            scale, st);
+                            ctx_sub, scale, st);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+// ctx_sub: subtracted from each entry of lens to give the tokens cached
+// before the chunk (0: lens are ctx_lens; Sq: lens are cache_lens).
+cudaError_t run(int dtype, const void* q, const void* k, const void* v,
+                const void* lens, void* out, int S, int Sq, int H, int Hkv,
+                int hd, int Smax, int ctx_sub, float scale, int device,
+                void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (S <= 0 || Sq <= 0) return cudaSuccess;
+  if (Smax < 1 || Hkv < 1 || H % Hkv != 0 || S > 65535 || Hkv > 65535)
+    return cudaErrorInvalidValue;
+  const int* cl = static_cast<const int*>(lens);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return by_dim<float>(q, k, v, cl, out, S, Sq, H, Hkv, hd, Smax, ctx_sub,
+                         scale, st);
+  if (dtype == 1)
+    return by_dim<__nv_bfloat16>(q, k, v, cl, out, S, Sq, H, Hkv, hd, Smax,
+                                 ctx_sub, scale, st);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it).
-// Shapes: q (S, Sq, H, hd); k/v (S, Smax, Hkv, hd); ctx_lens (S,) int32;
-// out (S, Sq, H, hd).  All contiguous.
+// Shapes: q (S, Sq, H, hd); k/v (S, Smax, Hkv, hd); ctx_lens (S,) int32
+// tokens cached before each chunk; out (S, Sq, H, hd).  All contiguous.
 extern "C" int proserve_packed_prefill(int dtype, const void* q,
                                        const void* k, const void* v,
                                        const void* ctx_lens, void* out, int S,
                                        int Sq, int H, int Hkv, int hd,
                                        int Smax, float scale, int device,
                                        void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (S <= 0 || Sq <= 0) return cudaSuccess;
-  if (Smax < 1 || Hkv < 1 || H % Hkv != 0 || S > 65535 || Hkv > 65535)
-    return cudaErrorInvalidValue;
-  const int* cl = static_cast<const int*>(ctx_lens);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return by_dim<float>(q, k, v, cl, out, S, Sq, H, Hkv, hd, Smax, scale, st);
-  if (dtype == 1)
-    return by_dim<__nv_bfloat16>(q, k, v, cl, out, S, Sq, H, Hkv, hd, Smax,
-                                 scale, st);
-  return cudaErrorInvalidValue;
+  return run(dtype, q, k, v, ctx_lens, out, S, Sq, H, Hkv, hd, Smax, 0, scale,
+             device, stream);
+}
+
+// The same kernel for B single-request chunks: q (B, Sq, H, hd); k/v
+// (B, Smax, Hkv, hd); cache_lens (B,) int32 tokens valid INCLUDING the
+// chunk; out (B, Sq, H, hd).  All contiguous.
+extern "C" int proserve_chunked_prefill(int dtype, const void* q,
+                                        const void* k, const void* v,
+                                        const void* cache_lens, void* out,
+                                        int B, int Sq, int H, int Hkv, int hd,
+                                        int Smax, float scale, int device,
+                                        void* stream) {
+  return run(dtype, q, k, v, cache_lens, out, B, Sq, H, Hkv, hd, Smax, Sq,
+             scale, device, stream);
 }

@@ -1,10 +1,22 @@
-// Paged decode attention for Hopper (sm_90a).
+// Paged decode and packed speculative-verify attention for Hopper
+// (sm_90a): one kernel body, two C entry points.
 //
-// Replaces the TPU kernel repro/kernels/paged_attention.py
-// `paged_decode_attention` (body `_kernel`): one decode step for B requests
-// read straight off the paged KV pool, an online softmax in fp32 over the
-// pages of each request's block table, the G = H / Hkv query heads of a kv
-// group sharing every K/V load, positions >= lengths[b] masked.
+// Replaces two TPU kernels:
+//  * repro/kernels/paged_attention.py `paged_decode_attention` (body
+//    `_kernel`), entry proserve_paged_decode: one decode step for B
+//    requests read straight off the paged KV pool, an online softmax in
+//    fp32 over the pages of each request's block table, the G = H / Hkv
+//    query heads of a kv group sharing every K/V load, positions >=
+//    lengths[b] masked.
+//  * repro/kernels/spec_verify.py `packed_verify_attention`, entry
+//    proserve_packed_verify: the same for R verify rows, where row b reads
+//    the table row row_seg[b] of a compact (S, maxp) table (all rows of a
+//    request share its table) with its own length l_kv + j + 1.  As in the
+//    TPU kernel this is the only change: row_seg is read where the table
+//    row is chosen, and nothing else in the body differs, so each verify
+//    row is bitwise the decode row run on tables[row_seg[b]].  The
+//    choice is a template flag, so the decode instances compile as they
+//    did without it.
 //
 // What bounds it on the card: memory bandwidth.  Each (request, kv head)
 // reads len * hd * 2 K/V values once and does 4 * G * hd flops per cached
@@ -63,13 +75,15 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// D: head dims per lane (ceil(hd / 32)); GM: largest G this instance takes.
-template <typename T, int D, int GM>
+// D: head dims per lane (ceil(hd / 32)); GM: largest G this instance takes;
+// ROW_SEG: verify (row b reads table row row_seg[b]) or decode (row b).
+template <typename T, int D, int GM, bool ROW_SEG>
 __global__ void __launch_bounds__(WARPS * 32)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                     const T* __restrict__ v_pages,
                     const int* __restrict__ tables,
-                    const int* __restrict__ lengths, T* __restrict__ out,
+                    const int* __restrict__ lengths,
+                    const int* __restrict__ row_seg, T* __restrict__ out,
                     int H, int Hkv, int hd, int page, int maxp, float scale) {
   const int b = blockIdx.x / Hkv;
   const int kvh = blockIdx.x % Hkv;
@@ -78,6 +92,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   const int lane = threadIdx.x % 32;
   const int len = lengths[b];
   const int n_pages = min((len + page - 1) / page, maxp);
+  // decode: row b's own table row; verify: its request's (row_seg[b])
+  const int trow = ROW_SEG ? row_seg[b] : b;
 
   float qr[GM][D], acc[GM][D], m[GM], l[GM];
 #pragma unroll
@@ -96,7 +112,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 
   const size_t pos_stride = (size_t)Hkv * hd;
   for (int i = warp; i < n_pages; i += WARPS) {
-    const int phys = tables[(size_t)b * maxp + i];
+    const int phys = tables[(size_t)trow * maxp + i];
     const size_t base = ((size_t)phys * page * Hkv + kvh) * hd;
     const T* kp = k_pages + base;
     const T* vp = v_pages + base;
@@ -205,58 +221,87 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 
 template <typename T, int D, int GM>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* tables, const int* lengths, void* out, int B,
-                   int H, int Hkv, int hd, int page, int maxp, float scale,
-                   cudaStream_t stream) {
-  paged_decode_kernel<T, D, GM><<<B * Hkv, WARPS * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), tables, lengths, static_cast<T*>(out), H,
-      Hkv, hd, page, maxp, scale);
+                   const int* tables, const int* lengths, const int* row_seg,
+                   void* out, int B, int H, int Hkv, int hd, int page,
+                   int maxp, float scale, cudaStream_t stream) {
+  if (row_seg)
+    paged_decode_kernel<T, D, GM, true><<<B * Hkv, WARPS * 32, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), tables, lengths, row_seg,
+        static_cast<T*>(out), H, Hkv, hd, page, maxp, scale);
+  else
+    paged_decode_kernel<T, D, GM, false><<<B * Hkv, WARPS * 32, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), tables, lengths, row_seg,
+        static_cast<T*>(out), H, Hkv, hd, page, maxp, scale);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t by_group(int G, const void* q, const void* k, const void* v,
-                     const int* tables, const int* lengths, void* out, int B,
-                     int H, int Hkv, int hd, int page, int maxp, float scale,
+                     const int* tables, const int* lengths,
+                     const int* row_seg, void* out, int B, int H, int Hkv,
+                     int hd, int page, int maxp, float scale,
                      cudaStream_t st) {
   if (G <= 1)
-    return launch<T, D, 1>(q, k, v, tables, lengths, out, B, H, Hkv, hd, page,
-                           maxp, scale, st);
+    return launch<T, D, 1>(q, k, v, tables, lengths, row_seg, out, B, H,
+                           Hkv, hd, page, maxp, scale, st);
   if (G <= 2)
-    return launch<T, D, 2>(q, k, v, tables, lengths, out, B, H, Hkv, hd, page,
-                           maxp, scale, st);
+    return launch<T, D, 2>(q, k, v, tables, lengths, row_seg, out, B, H,
+                           Hkv, hd, page, maxp, scale, st);
   if (G <= 4)
-    return launch<T, D, 4>(q, k, v, tables, lengths, out, B, H, Hkv, hd, page,
-                           maxp, scale, st);
+    return launch<T, D, 4>(q, k, v, tables, lengths, row_seg, out, B, H,
+                           Hkv, hd, page, maxp, scale, st);
   if (G <= 8)
-    return launch<T, D, 8>(q, k, v, tables, lengths, out, B, H, Hkv, hd, page,
-                           maxp, scale, st);
+    return launch<T, D, 8>(q, k, v, tables, lengths, row_seg, out, B, H,
+                           Hkv, hd, page, maxp, scale, st);
   return cudaErrorInvalidValue;
 }
 
 template <typename T>
 cudaError_t by_dim(const void* q, const void* k, const void* v,
-                   const int* tables, const int* lengths, void* out, int B,
-                   int H, int Hkv, int hd, int page, int maxp, float scale,
-                   cudaStream_t st) {
+                   const int* tables, const int* lengths, const int* row_seg,
+                   void* out, int B, int H, int Hkv, int hd, int page,
+                   int maxp, float scale, cudaStream_t st) {
   const int G = H / Hkv;
   switch ((hd + 31) / 32) {
     case 1:
-      return by_group<T, 1>(G, q, k, v, tables, lengths, out, B, H, Hkv, hd,
-                            page, maxp, scale, st);
+      return by_group<T, 1>(G, q, k, v, tables, lengths, row_seg, out, B,
+                            H, Hkv, hd, page, maxp, scale, st);
     case 2:
-      return by_group<T, 2>(G, q, k, v, tables, lengths, out, B, H, Hkv, hd,
-                            page, maxp, scale, st);
+      return by_group<T, 2>(G, q, k, v, tables, lengths, row_seg, out, B,
+                            H, Hkv, hd, page, maxp, scale, st);
     case 3:
-      return by_group<T, 3>(G, q, k, v, tables, lengths, out, B, H, Hkv, hd,
-                            page, maxp, scale, st);
+      return by_group<T, 3>(G, q, k, v, tables, lengths, row_seg, out, B,
+                            H, Hkv, hd, page, maxp, scale, st);
     case 4:
-      return by_group<T, 4>(G, q, k, v, tables, lengths, out, B, H, Hkv, hd,
-                            page, maxp, scale, st);
+      return by_group<T, 4>(G, q, k, v, tables, lengths, row_seg, out, B,
+                            H, Hkv, hd, page, maxp, scale, st);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+cudaError_t run(int dtype, const void* q, const void* k, const void* v,
+                const void* tables, const void* lengths, const void* row_seg,
+                void* out, int B, int H, int Hkv, int hd, int page, int maxp,
+                float scale, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (B <= 0) return cudaSuccess;
+  if (page < 1 || page > 32 || Hkv < 1 || H % Hkv != 0)
+    return cudaErrorInvalidValue;
+  const int* tb = static_cast<const int*>(tables);
+  const int* ln = static_cast<const int*>(lengths);
+  const int* rs = static_cast<const int*>(row_seg);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return by_dim<float>(q, k, v, tb, ln, rs, out, B, H, Hkv, hd, page, maxp,
+                         scale, st);
+  if (dtype == 1)
+    return by_dim<__nv_bfloat16>(q, k, v, tb, ln, rs, out, B, H, Hkv, hd,
+                                 page, maxp, scale, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -270,19 +315,20 @@ extern "C" int proserve_paged_decode(int dtype, const void* q, const void* k,
                                      int H, int Hkv, int hd, int page,
                                      int maxp, float scale, int device,
                                      void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (B <= 0) return cudaSuccess;
-  if (page < 1 || page > 32 || Hkv < 1 || H % Hkv != 0)
-    return cudaErrorInvalidValue;
-  const int* tb = static_cast<const int*>(tables);
-  const int* ln = static_cast<const int*>(lengths);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return by_dim<float>(q, k, v, tb, ln, out, B, H, Hkv, hd, page, maxp,
-                         scale, st);
-  if (dtype == 1)
-    return by_dim<__nv_bfloat16>(q, k, v, tb, ln, out, B, H, Hkv, hd, page,
-                                 maxp, scale, st);
-  return cudaErrorInvalidValue;
+  return run(dtype, q, k, v, tables, lengths, nullptr, out, B, H, Hkv, hd,
+             page, maxp, scale, device, stream);
+}
+
+// Packed verify: q (R, H, hd); k/v pages (P, page, Hkv, hd); tables
+// (S, maxp) int32; lengths (R,) int32 per row; row_seg (R,) int32 in
+// [0, S) (the wrapper checks it); out (R, H, hd).  All contiguous.
+extern "C" int proserve_packed_verify(int dtype, const void* q,
+                                      const void* k, const void* v,
+                                      const void* tables, const void* lengths,
+                                      const void* row_seg, void* out, int R,
+                                      int H, int Hkv, int hd, int page,
+                                      int maxp, float scale, int device,
+                                      void* stream) {
+  return run(dtype, q, k, v, tables, lengths, row_seg, out, R, H, Hkv, hd,
+             page, maxp, scale, device, stream);
 }

@@ -40,10 +40,18 @@ SIGNATURES = {
     # scale, device, stream
     "proserve_paged_decode": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _I, _F, _I, _P],
+    # dtype, q, k, v, tables, lengths, row_seg, out, R, H, Hkv, hd, page,
+    # maxp, scale, device, stream
+    "proserve_packed_verify": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _I, _F, _I, _P],
     # dtype, q, k, v, ctx_lens, out, S, Sq, H, Hkv, hd, Smax, scale,
     # device, stream
     "proserve_packed_prefill": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _I, _I, _F, _I, _P],
+    # dtype, q, k, v, cache_lens, out, B, Sq, H, Hkv, hd, Smax, scale,
+    # device, stream
+    "proserve_chunked_prefill": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _I, _I, _F, _I, _P],
     # dtype, x, vals, scales, R, E, device, stream
     "proserve_kv_quantize": [_I, _P, _P, _P, _I, _LL, _I, _P],
     # vals, scales, out, R, E, device, stream

@@ -9,13 +9,17 @@ from __future__ import annotations
 
 from . import build, ref
 from .block_gather import block_gather as _block_gather
+from .chunked_prefill import chunked_prefill_attention as _chunked_prefill
 from .chunked_prefill import packed_prefill_attention as _packed_prefill
 from .kv_quant import kv_block_dequantize as _kv_dequant
 from .kv_quant import kv_block_quantize as _kv_quant
 from .paged_attention import paged_decode_attention as _paged_decode
+from .spec_verify import packed_verify_attention as _packed_verify
 
 _WRAPPERS = {"paged_decode_attention": _paged_decode,
              "packed_prefill_attention": _packed_prefill,
+             "chunked_prefill_attention": _chunked_prefill,
+             "packed_verify_attention": _packed_verify,
              "kv_block_quantize": _kv_quant,
              "kv_block_dequantize": _kv_dequant,
              "block_gather": _block_gather}
@@ -34,6 +38,24 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths):
         return _paged_decode(q, k_pages, v_pages, block_tables, lengths)
     return ref.paged_decode_attention_ref(q, k_pages, v_pages, block_tables,
                                           lengths)
+
+
+def packed_verify_attention(q, k_pages, v_pages, block_tables, lengths,
+                            row_seg):
+    """Verify rows read ``block_tables[row_seg]`` (see ``spec_verify``)."""
+    if _on_cuda(q):
+        return _packed_verify(q, k_pages, v_pages, block_tables, lengths,
+                              row_seg)
+    return ref.packed_verify_attention_ref(q, k_pages, v_pages, block_tables,
+                                           lengths, row_seg)
+
+
+def chunked_prefill_attention(q, k_cache, v_cache, cache_lens):
+    """One chunk per row of q against its staged cache; ``cache_lens``
+    include the chunk."""
+    if _on_cuda(q):
+        return _chunked_prefill(q, k_cache, v_cache, cache_lens)
+    return ref.chunked_prefill_attention_ref(q, k_cache, v_cache, cache_lens)
 
 
 def packed_prefill_attention(q, k_cache, v_cache, ctx_lens):

@@ -35,6 +35,18 @@ def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, lengths):
     return o.reshape(b, h, hd).to(q.dtype)
 
 
+def packed_verify_attention_ref(q, k_pages, v_pages, block_tables, lengths,
+                                row_seg):
+    """Packed speculative verify: rows sharing a request share a block-table
+    row via ``row_seg``.  q: (R, H, hd); pages: (P, page, Hkv, hd);
+    block_tables: (S, maxp); lengths / row_seg: (R,).  The decode math on
+    each row's gathered table.  Returns (R, H, hd)."""
+    seg = torch.as_tensor(row_seg).to(device=block_tables.device,
+                                      dtype=torch.long)
+    return paged_decode_attention_ref(q, k_pages, v_pages,
+                                      block_tables[seg], lengths)
+
+
 def chunked_prefill_attention_ref(q, k_cache, v_cache, cache_lens):
     """The chunk's K/V are ALREADY written into the cache at
     [cache_lens - Sq, cache_lens).  q: (B, Sq, H, hd); k/v_cache:

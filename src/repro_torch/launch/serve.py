@@ -6,6 +6,9 @@ point (counterpart of ``repro.launch.serve --mode real`` and
     python -m repro_torch.launch.serve --arch qwen1_5_0_5b --smoke --device cpu
     python -m repro_torch.launch.serve --tiered             # bounded host tier
     python -m repro_torch.launch.serve --tiered --exact-cold  # fp32 cold tier
+    python -m repro_torch.launch.serve --spec-k 2           # speculative
+    python -m repro_torch.launch.serve --spec-k 2 --draft other
+    python -m repro_torch.launch.serve --per-request        # fallback paths
 
 Random weights from ``--seed`` (nothing is downloaded).  Requests arrive in
 two waves: the first fills the paged pool with mid- and low-priority
@@ -25,6 +28,14 @@ mirrored blocks, and a host tier of ``host_tier_blocks`` blocks, so that
 host-tier groups demote into the int8 cold tier (``--exact-cold``: a raw
 fp32 cold tier) and prefix-cache evictions spill into the host tiers.
 ``--host-tier-blocks N`` bounds the host tier of any traffic.
+
+``--spec-k K`` decodes speculatively: a draft model proposes up to K
+tokens per request and the target verifies them in one packed launch; the
+draft is the target's own weights (``--draft same``, every proposal should
+be accepted) or weights from another seed (``--draft other``, most are
+rejected).  ``--per-request`` runs the reference's fallback paths: one
+``prefill_chunk`` call per prefill chunk and the logits decode
+(``packed_prefill=False, fused_decode=False``).
 """
 from __future__ import annotations
 
@@ -46,6 +57,7 @@ from ..serving.engine import Engine
 # priority -> (weight, TTFT SLO s, TPOT SLO s)
 PRIORITIES = {1: (3.0, 0.5, 0.05), 2: (2.0, 1.0, 0.1), 3: (1.0, 2.0, 0.2)}
 W_P = 4.0
+DRAFT_SEED = 7      # --draft other: weights from seed + DRAFT_SEED
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,6 +118,12 @@ class ServeResult:
             "decode_launches": st.decode_launches,
             "packed_prefill_calls": st.packed_prefill_calls,
             "host_syncs": st.host_syncs,
+            "prefill_chunk_calls": st.prefill_chunk_calls,
+            "spec_proposed": st.spec_proposed,
+            "spec_accepted": st.spec_accepted,
+            "spec_rejected": st.spec_rejected,
+            "draft_launches": st.draft_launches,
+            "spec_depth_hist": dict(sorted(st.spec_depth_hist.items())),
             "offload_blocks": st.offload_blocks,
             "staged_hits": st.staged_hits,
             "staged_misses": st.staged_misses,
@@ -171,21 +189,47 @@ def block_bytes(cfg: ArchConfig, traffic: Traffic, dtype) -> int:
             * torch.empty((), dtype=dtype).element_size())
 
 
+def drain(eng: Engine, max_iters: int) -> int:
+    """Step until every request is done; returns the steps taken.  Unlike
+    ``Engine.run_until_drained``, which stops at the first step that forms
+    no batch (as the reference does), one such idle step is retried: its
+    planned evictions can release prefix-cache pins, so that the next
+    step schedules (the tiered traffic's twelve simultaneous arrivals need
+    this).  Two idle steps in a row mean nothing is schedulable."""
+    idle = 0
+    for it in range(max_iters):
+        if not eng.has_work():
+            return it
+        if eng.step() is None:
+            idle += 1
+            if idle == 2:
+                return it + 1
+        else:
+            idle = 0
+    return max_iters
+
+
 def serve(cfg: ArchConfig, params: dict, traffic: Traffic, *,
           seed: int = 0, device="cuda", max_iters: int = 10000,
-          overlap_transfers: bool = True,
-          cold_quantize: bool = True) -> ServeResult:
+          overlap_transfers: bool = True, cold_quantize: bool = True,
+          spec_k: int = 0, draft: Optional[tuple] = None,
+          packed_prefill: bool = True,
+          fused_decode: bool = True) -> ServeResult:
     """Run the waves through one ``Engine`` until every request is done,
-    then wait for the background copies to land."""
+    then wait for the background copies to land.  ``spec_k > 0`` needs
+    ``draft = (draft cfg, draft params)``."""
     tier_bytes = (None if traffic.host_tier_blocks is None else
                   traffic.host_tier_blocks
                   * block_bytes(cfg, traffic, params["embed"].dtype))
     eng = Engine(cfg, params, EngineConfig(eta=1.0, w_p=W_P, tau=1e9,
-                                           max_seqs=traffic.max_seqs),
+                                           max_seqs=traffic.max_seqs,
+                                           spec_k=spec_k),
                  SlideBatching(), num_blocks=traffic.num_blocks,
                  block_size=traffic.block_size, device=device,
                  overlap_transfers=overlap_transfers,
-                 host_tier_bytes=tier_bytes, cold_quantize=cold_quantize)
+                 host_tier_bytes=tier_bytes, cold_quantize=cold_quantize,
+                 spec_draft=draft, packed_prefill=packed_prefill,
+                 fused_decode=fused_decode)
     first, second, third = make_requests(cfg, traffic,
                                          np.random.default_rng(seed))
     arrived: dict[int, float] = {}
@@ -214,7 +258,7 @@ def serve(cfg: ArchConfig, params: dict, traffic: Traffic, *,
             arrived[r.rid] = time.monotonic() - t0
             eng.add_request(r, p)
         # the third wave arrives once the first two are done
-        it += eng.run_until_drained(max_iters - it)
+        it += drain(eng, max_iters - it)
     eng.flush_transfers()
     if eng.device.type == "cuda":
         torch.cuda.synchronize()
@@ -244,7 +288,17 @@ def main(argv: Optional[list[str]] = None) -> ServeResult:
     ap.add_argument("--no-overlap", action="store_true",
                     help="copy KV synchronously instead of on the "
                          "background transfer lanes")
+    ap.add_argument("--spec-k", type=int, default=0, metavar="K",
+                    help="speculative decoding with draft depth up to K")
+    ap.add_argument("--draft", choices=("same", "other"), default=None,
+                    help="the draft's weights: the target's (same, the "
+                         "default) or from another seed (other)")
+    ap.add_argument("--per-request", action="store_true",
+                    help="per-request prefill chunks and the logits decode "
+                         "(packed_prefill=False, fused_decode=False)")
     args = ap.parse_args(argv)
+    if args.draft is not None and args.spec_k <= 0:
+        ap.error("--draft needs --spec-k K > 0")
 
     dev = resolve_device(args.device)
     # fp32 is the parity mode: full-precision matmuls, never TF32
@@ -260,9 +314,16 @@ def main(argv: Optional[list[str]] = None) -> ServeResult:
                                       host_tier_blocks=args.host_tier_blocks)
     params = init_params(cfg, torch.Generator(dev).manual_seed(args.seed),
                          device=dev)
+    draft = None
+    if args.spec_k > 0:
+        draft = (cfg, params if args.draft in (None, "same") else init_params(
+            cfg, torch.Generator(dev).manual_seed(args.seed + DRAFT_SEED),
+            device=dev))
     res = serve(cfg, params, traffic, seed=args.seed, device=dev,
                 overlap_transfers=not args.no_overlap,
-                cold_quantize=not args.exact_cold)
+                cold_quantize=not args.exact_cold, spec_k=args.spec_k,
+                draft=draft, packed_prefill=not args.per_request,
+                fused_decode=not args.per_request)
     where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
              else "cpu")
     print(json.dumps({"arch": cfg.name, "device": where,

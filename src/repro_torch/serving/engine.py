@@ -17,19 +17,25 @@ One ``Engine`` = one model replica.  Each iteration:
      ``host_tier_bytes`` the host tier is bounded and demotes into an
      int8 cold tier, and prefix-cache evictions spill into it;
   3. prefill chunks run PACKED — every request's chunk in one
-     ``prefill_packed`` call — greedy-sampling the first token when a
-     prompt completes; decode entries run as one fused ``decode_step``;
+     ``prefill_packed`` call (``packed_prefill=False``: one
+     ``prefill_chunk`` call per request) — greedy-sampling the first token
+     when a prompt completes; decode entries run as one fused
+     ``decode_step`` (``fused_decode=False``: ``decode_batch`` on the
+     unpadded batch, which returns the logits).  With ``spec_draft`` and ``spec_k > 0`` a
+     ``DraftRunner`` (``serving/spec.py``) proposes up to the planned depth
+     per request and ONE ``verify_step`` scores every (request, draft
+     position) row; greedy acceptance keeps each stream equal to plain
+     decode;
   4. measured wall-clock batch latencies feed the §4.1 estimator, which is
      refit online every ``refit_every`` batches.
 
-Each model launch costs exactly one device-to-host fetch (the sampled
-tokens), counted in ``EngineStats.host_syncs``.
+Each target model launch that samples costs exactly one device-to-host
+fetch (the sampled tokens), counted in ``EngineStats.host_syncs``, as is
+each draft decode round; a per-request prefill chunk fetches only when
+its prompt completes.
 
-Not ported yet (each raises ``NotImplementedError``): speculative
-decoding (``spec_draft`` / ``spec_k > 0``), the prefill / decode roles
-and their handoff (``role != "coloc"``, ``handoff_quantize``), and the
-per-request prefill and logits-decode fallbacks (``packed_prefill=False``,
-``fused_decode=False``).
+Not ported yet (each raises ``NotImplementedError``): the prefill / decode
+roles and their handoff (``role != "coloc"``, ``handoff_quantize``).
 """
 from __future__ import annotations
 
@@ -50,6 +56,7 @@ from ..models.model import ArchConfig, require_dense, resolve_device
 from . import model_exec
 from .kv_pool import PagedKVPool
 from .prefix_cache import RadixPrefixCache
+from .spec import DraftRunner
 from .transfer import TransferWorker
 
 logger = logging.getLogger(__name__)
@@ -81,7 +88,15 @@ class EngineStats:
     # to the host tier instead of destroyed (tiered KV cache)
     cold_blocks: int = 0           # current int8 cold-tier blocks
     host_syncs: int = 0            # device->host fetches in the hot loop —
-    # exactly one per model launch (no hidden syncs)
+    # exactly one per sampling launch (no hidden syncs)
+    prefill_chunk_calls: int = 0   # per-request prefill_chunk launches
+    # (packed_prefill=False)
+    # --- speculative decoding (draft propose + packed verify) ------------
+    spec_proposed: int = 0         # draft tokens proposed for verification
+    spec_accepted: int = 0         # proposals matching the target argmax
+    spec_rejected: int = 0         # proposals refuted (== proposed - accepted)
+    draft_launches: int = 0        # draft-model calls (prefill + rounds)
+    spec_depth_hist: dict = field(default_factory=dict)  # depth -> entries
     # bounded: long-lived replicas must not grow without limit
     batch_latencies: deque = field(
         default_factory=lambda: deque(maxlen=512))
@@ -95,7 +110,7 @@ def _unported(flag: str) -> NotImplementedError:
 class Engine:
     def __init__(self, cfg: ArchConfig, params: dict, eng_cfg: EngineConfig,
                  policy, *, num_blocks: int = 512, block_size: int = 16,
-                 t_block: float = 5e-4,
+                 t_block: float = 5e-4, max_ctx: int = 1024,
                  est: Optional[BatchLatencyEstimator] = None,
                  bm_kwargs: Optional[dict] = None,
                  prefix_cache: bool = True,
@@ -108,19 +123,18 @@ class Engine:
                  role: str = "coloc",
                  handoff_quantize: bool = False,
                  spec_draft: Optional[tuple] = None,
+                 spec_draft_blocks: Optional[int] = None,
                  device="cuda"):
-        """``params`` must already live on ``device`` (default the card;
-        ``device="cpu"`` runs the plain PyTorch kernel versions).  The
-        flags of the reference that are not ported yet are accepted only
-        at their one supported value and raise otherwise."""
+        """``params`` (and a draft's) must already live on ``device``
+        (default the card; ``device="cpu"`` runs the plain PyTorch kernel
+        versions).  The flags of the reference that are not ported yet are
+        accepted only at their one supported value and raise otherwise."""
         if role not in ("coloc", "prefill", "decode"):
             raise ValueError(f"unknown engine role: {role!r}")
+        if eng_cfg.spec_k > 0 and spec_draft is None:
+            raise ValueError("spec_k > 0 requires spec_draft=(cfg, params)")
         for flag, unported in (
                 ("role=" + repr(role), role != "coloc"),
-                ("spec_draft", spec_draft is not None),
-                ("spec_k > 0", eng_cfg.spec_k > 0),
-                ("packed_prefill=False", not packed_prefill),
-                ("fused_decode=False", not fused_decode),
                 ("handoff_quantize=True", handoff_quantize)):
             if unported:
                 raise _unported(flag)
@@ -133,6 +147,7 @@ class Engine:
         self.params = params
         self.eng_cfg = eng_cfg
         self.policy = policy
+        self.max_ctx = max_ctx
         # host_tier_bytes bounds the hot host tier (LRU demotion into the
         # int8 cold tier, see kv_pool.KVTierStore); None = unbounded host
         # mirror with bitwise-identical token streams
@@ -152,6 +167,24 @@ class Engine:
             RadixPrefixCache(self.pool, self.bm, max_blocks=cache_blocks,
                              spill=host_tier_bytes is not None)
             if prefix_cache else None)
+        self.packed_prefill = packed_prefill
+        # fused decode: argmax on device, batch and table padded to shape
+        # buckets; the logits path (decode_batch) is kept for equivalence
+        self.fused_decode = fused_decode
+        # speculative decoding: a draft replica proposes, the target packs
+        # all (request, position) rows into ONE verify_step launch; greedy
+        # acceptance keeps streams equal to plain decode
+        self.draft: Optional[DraftRunner] = None
+        if spec_draft is not None and eng_cfg.spec_k > 0:
+            dcfg, dparams = spec_draft
+            if dparams["embed"].device.type != self.device.type:
+                raise ValueError(f"draft params are on "
+                                 f"{dparams['embed'].device}, the engine "
+                                 f"on {self.device}")
+            self.draft = DraftRunner(
+                dcfg, dparams, num_blocks=spec_draft_blocks or num_blocks,
+                block_size=block_size, max_ctx=max_ctx,
+                dtype=params["embed"].dtype, device=self.device)
         self.worker: Optional[TransferWorker] = (
             TransferWorker(device=self.device) if overlap_transfers
             else None)
@@ -370,6 +403,8 @@ class Engine:
             self.pool.offload_blocks(r.rid, missing)
         self.pool.drop_device_blocks(r.rid)
         self._forget_transfers(r.rid)
+        if self.draft is not None:
+            self.draft.drop(r.rid)
         self.stats.evictions += 1
 
     def _sync_pool_with_bm(self, plan: BatchPlan) -> None:
@@ -448,9 +483,15 @@ class Engine:
         prefill_entries = [e for e in plan.entries if e.is_prefill]
         emitted: list[Request] = []
         if prefill_entries:
-            self._run_prefill_packed(prefill_entries, emitted)
+            if self.packed_prefill:
+                self._run_prefill_packed(prefill_entries, emitted)
+            else:
+                self._run_prefill_fallback(prefill_entries, emitted)
         if decode_entries:
-            self._run_decode(decode_entries, emitted)
+            if self.draft is not None:
+                self._run_decode_spec(decode_entries, emitted)
+            else:
+                self._run_decode(decode_entries, emitted)
 
         latency = time.monotonic() - t0
         if self._wall_epoch is not None:
@@ -467,6 +508,8 @@ class Engine:
         for r in finished:
             self.bm.release(r)
             self.pool.release(r.rid)
+            if self.draft is not None:
+                self.draft.drop(r.rid)
             # drop all per-request transfer state: a late completion for
             # this rid is caught by the dead-request guard in
             # _drain_transfers (rid no longer in bm.table)
@@ -492,9 +535,11 @@ class Engine:
     # decode execution
     # ------------------------------------------------------------------
     def _run_decode(self, decode_entries: list, emitted: list) -> None:
-        """Fused decode: one token per request in one launch.  The batch
-        and table are padded to shape buckets (extra rows: token 0, len 0,
-        null-block table) and only the (B,) argmax comes back."""
+        """Plain decode: one token per request in one launch.  Fused: the
+        batch and table padded to shape buckets (extra rows: token 0,
+        len 0, null-block table); otherwise ``decode_batch`` on the exact
+        batch returns the (B, V) logits.  Either way only the (B,) argmax
+        comes back to the host."""
         rids = [e.req.rid for e in decode_entries]
         nb = len(decode_entries)
         for e in decode_entries:
@@ -504,21 +549,120 @@ class Engine:
                 self.bm.note_fork(e.req)
                 self.stats.cow_forks += 1
         maxp = max(len(self.pool.tables[r]) for r in rids)
-        b_b = model_exec.seg_bucket(nb)
-        maxp_b = model_exec.table_bucket(maxp)
-        lens = np.zeros(b_b, np.int32)
-        lens[:nb] = [e.l_kv for e in decode_entries]
-        last = np.zeros(b_b, np.int32)
-        last[:nb] = [self._last_token(e.req) for e in decode_entries]
-        table = self.pool.table_array(rids, maxp=maxp_b, rows=b_b)
-        toks, self.pool.kv = model_exec.decode_step(
-            self.cfg, self.params, self.pool.kv, self._dev(last), table,
-            self._dev(lens))
-        nxt = toks.cpu().numpy()[:nb]
+        if self.fused_decode:
+            b_b = model_exec.seg_bucket(nb)
+            maxp_b = model_exec.table_bucket(maxp)
+            lens = np.zeros(b_b, np.int32)
+            lens[:nb] = [e.l_kv for e in decode_entries]
+            last = np.zeros(b_b, np.int32)
+            last[:nb] = [self._last_token(e.req) for e in decode_entries]
+            table = self.pool.table_array(rids, maxp=maxp_b, rows=b_b)
+            toks, self.pool.kv = model_exec.decode_step(
+                self.cfg, self.params, self.pool.kv, self._dev(last), table,
+                self._dev(lens))
+            nxt = toks.cpu().numpy()[:nb]
+        else:
+            lens = np.array([e.l_kv for e in decode_entries], np.int32)
+            table = self.pool.table_array(rids, maxp=maxp)
+            last = np.array([self._last_token(e.req)
+                             for e in decode_entries], np.int32)
+            logits, self.pool.kv = model_exec.decode_batch(
+                self.cfg, self.params, self.pool.kv, self._dev(last), table,
+                self._dev(lens))
+            nxt = logits.argmax(-1).cpu().numpy()
         self.stats.decode_launches += 1
         self.stats.host_syncs += 1
         for e, tok in zip(decode_entries, nxt):
             self._emit(e.req, int(tok), emitted)
+
+    def _run_decode_spec(self, decode_entries: list, emitted: list) -> None:
+        """Speculative decode: the draft proposes up to ``e.depth`` tokens
+        per request, then ONE ``verify_step`` launch scores every
+        (request, position) row packed together — depth-0 requests
+        contribute their single plain-decode row.  Greedy acceptance takes
+        the leading proposals that match the target argmax and emits one
+        bonus token per match, so the stream equals plain decode (each
+        verify row is a plain decode row; see kernels/spec_verify.py).
+        Depth was capped at admission to the current block's remainder,
+        so all speculative writes land in blocks the +1-token growth
+        already reserved."""
+        for e in decode_entries:
+            self.pool.ensure_capacity(e.req.rid, e.l_kv + 1 + e.depth)
+            if self.pool.ensure_writable(e.req.rid,
+                                         e.l_kv // self.pool.block_size):
+                self.bm.note_fork(e.req)
+                self.stats.cow_forks += 1
+        launches0 = self.draft.launches
+        syncs0 = self.draft.syncs
+        items = [(e.req.rid, self._seq_view(e.req), e.depth)
+                 for e in decode_entries if e.depth > 0]
+        proposals = self.draft.propose(items) if items else {}
+        self.stats.draft_launches += self.draft.launches - launches0
+        self.stats.host_syncs += self.draft.syncs - syncs0
+        for e in decode_entries:
+            if e.depth > 0 and e.req.rid not in proposals:
+                e.depth = 0      # draft pool exhausted: plain decode row
+
+        # pack one verify row per (request, draft position); tables stay
+        # compact — one row per REQUEST — addressed via row_seg.  The
+        # segment bucket reserves one extra all-zero row so padding rows'
+        # K/V write lands in the null block (decode_step convention).
+        rids = [e.req.rid for e in decode_entries]
+        n_seg = len(decode_entries)
+        rows: list[tuple] = []   # (entry index, token)
+        for i, e in enumerate(decode_entries):
+            rows.append((i, self._last_token(e.req)))
+            for t in proposals.get(e.req.rid, [])[:e.depth]:
+                rows.append((i, t))
+        n_rows = len(rows)
+        r_b = model_exec.seg_bucket(n_rows)
+        s_b = model_exec.seg_bucket(n_seg + 1)
+        maxp = max(len(self.pool.tables[r]) for r in rids)
+        maxp_b = model_exec.table_bucket(maxp)
+        tokens = np.zeros(r_b, np.int32)
+        lens = np.zeros(r_b, np.int32)
+        row_seg = np.full(r_b, n_seg, np.int32)   # padding -> zero table row
+        starts = np.zeros(n_seg, np.int32)
+        prev = -1
+        for ri, (i, tok) in enumerate(rows):
+            if i != prev:
+                starts[i] = ri
+                prev = i
+            tokens[ri] = tok
+            lens[ri] = decode_entries[i].l_kv + (ri - starts[i])
+            row_seg[ri] = i
+        tables = self.pool.table_array(rids, maxp=maxp_b, rows=s_b)
+        # row_seg stays on the host: the verify kernel's wrapper checks it
+        # there before each launch
+        toks, self.pool.kv = model_exec.verify_step(
+            self.cfg, self.params, self.pool.kv, self._dev(tokens), tables,
+            self._dev(lens), torch.from_numpy(row_seg))
+        self.stats.decode_launches += 1
+        self.stats.host_syncs += 1
+        out = toks.cpu().numpy()
+
+        for i, e in enumerate(decode_entries):
+            d = e.depth
+            g = out[starts[i]:starts[i] + d + 1]
+            props = proposals.get(e.req.rid, [])[:d]
+            a = 0
+            while a < d and props[a] == g[a]:
+                a += 1
+            for t in g[:a + 1]:
+                self._emit(e.req, int(t), emitted)
+            # bonus tokens advance context inside blocks the +1 growth
+            # already covers (depth <= block remainder at admission)
+            self.bm.state(e.req).dev_tokens += a
+            if d > 0:
+                self.draft.observe(e.req.rid, d, a)
+                accept = getattr(self.policy, "spec_accept", None)
+                if accept is not None:
+                    accept.update(d, a)
+            self.stats.spec_proposed += d
+            self.stats.spec_accepted += a
+            self.stats.spec_rejected += d - a
+            self.stats.spec_depth_hist[d] = \
+                self.stats.spec_depth_hist.get(d, 0) + 1
 
     # ------------------------------------------------------------------
     # prefill execution
@@ -532,7 +676,7 @@ class Engine:
         return self._seqs[r.rid][:self._seq_fill[r.rid]]
 
     def _prepare_prefill(self, e) -> None:
-        """Block-table growth + CoW guard before a prefill chunk."""
+        """Block-table growth + CoW guard shared by both prefill paths."""
         r, ctx = e.req, e.l_kv
         self.pool.ensure_capacity(r.rid, ctx + e.n_tokens)
         # CoW guard: the first block written this pass may be shared
@@ -615,6 +759,31 @@ class Engine:
                 self._finish_prefill(e, int(nxt[i]), emitted)
             # recompute completion emits nothing (next decode pass does)
 
+    def _run_prefill_fallback(self, entries: list, emitted: list) -> None:
+        """Per-request chunked prefill: one ``prefill_chunk`` call per
+        entry, its chunk padded to ``bucket(n)``, the request's blocks
+        staged contiguously over ``staging_span``.  The host fetches the
+        logits only when a prompt completes."""
+        bs = self.pool.block_size
+        for e in entries:
+            r, ctx, n = e.req, e.l_kv, e.n_tokens
+            c = model_exec.bucket(n)
+            self._prepare_prefill(e)
+            toks = np.zeros((1, c), np.int32)
+            toks[0, :n] = self._seq_view(r)[ctx:ctx + n]
+            span = model_exec.staging_span(ctx, c, self.max_ctx, bs)
+            table = self.pool.table_array([r.rid], maxp=span // bs)
+            logits, self.pool.kv = model_exec.prefill_chunk(
+                self.cfg, self.params, self.pool.kv, self._dev(toks), table,
+                self._dev(np.array([ctx], np.int32)), span)
+            self.stats.prefill_chunk_calls += 1
+            self.stats.prefill_tokens += n
+            if ctx + n >= r.prompt_len and r.generated == 0:
+                self.stats.host_syncs += 1
+                tok = int(logits[0, n - 1].argmax())
+                self._finish_prefill(e, tok, emitted)
+            # recompute completion emits nothing (next decode pass does)
+
     # ------------------------------------------------------------------
     def _last_token(self, r: Request) -> int:
         outs = self.outputs[r.rid]
@@ -664,22 +833,15 @@ class Engine:
         return ok
 
     def run_until_drained(self, max_iters: int = 10000) -> int:
-        """Step until every request is done; returns the steps taken.  A
-        step that forms no batch can still change the state (the evictions
-        it planned release prefix-cache pins), so one such idle step is
-        retried; two in a row mean nothing is schedulable.  (The reference
-        stops at the first idle step.)"""
-        idle = 0
-        for it in range(max_iters):
-            if not self.has_work():
-                return it
+        """Step until every request is done or a step forms no batch
+        (nothing is schedulable), as the reference does; returns the steps
+        that formed a batch."""
+        it = 0
+        while self.has_work() and it < max_iters:
             if self.step() is None:
-                idle += 1
-                if idle == 2:
-                    return it + 1
-            else:
-                idle = 0
-        return max_iters
+                break
+            it += 1
+        return it
 
     def kill(self) -> list[Request]:
         """Stop the replica: stop the transfer worker and release every
@@ -691,6 +853,8 @@ class Engine:
         for r in orphans:
             self.bm.release(r)
             self.pool.release(r.rid)
+            if self.draft is not None:
+                self.draft.drop(r.rid)
             r.instance = None
         self.queue.clear()
         return orphans

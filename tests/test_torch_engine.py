@@ -1,11 +1,12 @@
 """The port's ``Engine(device="cpu")`` against greedy decoding by the JAX
 package's full-sequence ``forward`` on the same parameters and prompts:
 token for token, on the ``tests/test_engine_real.py`` scenarios (plain,
-preemption, sync offload / recompute-only), the port's two-wave serve
-traffic (prefix-cache hits), and every flag that is not ported yet
-raising ``NotImplementedError``.  The engine runs with its default
-background transfer lanes (``overlap_transfers=True``) unless a test says
-otherwise."""
+preemption, sync offload / recompute-only), the per-request prefill and
+logits-decode paths (``packed_prefill=False``, ``fused_decode=False``),
+the port's two-wave serve traffic (prefix-cache hits), and every flag that
+is not ported yet raising ``NotImplementedError``.  The engine runs with
+its default background transfer lanes (``overlap_transfers=True``) unless
+a test says otherwise."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -70,7 +71,10 @@ def check_streams(eng, reqs):
         assert eng.outputs[r.rid] == greedy_reference(prompt, r.output_len), \
             f"rid {r.rid} diverged"
     st = eng.stats
-    assert st.host_syncs == st.decode_launches + st.packed_prefill_calls
+    # one fetch per sampling launch: per-request chunks fetch only when
+    # their prompt completes, once per request
+    assert st.host_syncs == st.decode_launches + (
+        st.packed_prefill_calls if eng.packed_prefill else len(reqs))
 
 
 def test_engine_matches_greedy_reference():
@@ -82,6 +86,7 @@ def test_engine_matches_greedy_reference():
     # CPU tensors take the plain versions: no CUDA kernel is launched
     assert set(ops.launch_counts()) == {
         "paged_decode_attention", "packed_prefill_attention",
+        "chunked_prefill_attention", "packed_verify_attention",
         "kv_block_quantize", "kv_block_dequantize", "block_gather"}
     assert not any(ops.launch_counts().values())
     eng.kill()
@@ -107,6 +112,33 @@ def test_engine_sync_offload_and_recompute_exact(kwargs):
     check_streams(eng, reqs)
 
 
+PER_REQUEST = [dict(packed_prefill=False), dict(fused_decode=False),
+               dict(packed_prefill=False, fused_decode=False)]
+
+
+@pytest.mark.parametrize("kwargs", PER_REQUEST,
+                         ids=lambda kw: ",".join(kw))
+@pytest.mark.parametrize("num_blocks", [128, 10],
+                         ids=["plain", "preemption"])
+def test_per_request_paths_match_greedy_reference(kwargs, num_blocks):
+    """The reference's fallback paths: one ``prefill_chunk`` per prefill
+    chunk and the logits decode, with and without preemption."""
+    rng = np.random.default_rng(5)
+    eng = make_engine(num_blocks=num_blocks, **kwargs)
+    reqs = [submit(eng, rng, 40, 5) for _ in range(4)]
+    eng.run_until_drained(max_iters=400)
+    if num_blocks == 10:
+        assert eng.stats.evictions > 0
+    check_streams(eng, reqs)
+    st = eng.stats
+    if eng.packed_prefill:
+        assert st.prefill_chunk_calls == 0 and st.packed_prefill_calls > 0
+    else:
+        assert st.packed_prefill_calls == 0
+        assert st.prefill_chunk_calls >= len(reqs)
+    eng.kill()
+
+
 def test_two_wave_serve_with_prefix_hits_exact():
     res = serve.serve(TCFG, TPARAMS, serve.SMOKE, seed=3, device="cpu")
     st = res.engine.stats
@@ -116,15 +148,45 @@ def test_two_wave_serve_with_prefix_hits_exact():
     assert summary["requests"] == 12 and 0.0 <= summary["tdg_ratio"] <= 1.0
 
 
-def test_run_until_drained_retries_one_idle_step():
-    """An idle step (no batch formed) is retried once, since its planned
-    evictions can free what the next step schedules; two in a row stop."""
+def test_run_until_drained_stops_at_first_idle_step():
+    """``Engine.run_until_drained`` stops at the first step that forms no
+    batch, as the reference's does: both consume the same steps."""
+    from repro.core import EngineConfig as JEngineConfig
+    from repro.core import make_policy
+    from repro.serving import Engine as JEngine
+
+    port = make_engine(overlap_transfers=False)
+    ref = JEngine(CFG, JPARAMS, JEngineConfig(), make_policy("slidebatching"),
+                  num_blocks=16, overlap_transfers=False)
+    left = []
+    for eng in (port, ref):
+        steps = iter([{}, {}, None, {}, None])
+        eng.has_work = lambda: True
+        eng.step = lambda steps=steps: next(steps)
+        eng.run_until_drained(max_iters=10)
+        left.append(list(steps))
+    assert left[0] == left[1] == [{}, None]
+    steps = iter([{}, None, {}])
+    port.step = lambda: next(steps)
+    assert port.run_until_drained(max_iters=10) == 1
+    port.has_work = lambda: False
+    assert port.run_until_drained() == 0
+    port.kill()
+    ref.kill()
+
+
+def test_serve_wave_loop_retries_one_idle_step():
+    """The serve entry point's wave loop retries one idle step, since its
+    planned evictions can free what the next step schedules; two in a
+    row stop."""
     eng = make_engine(overlap_transfers=False)
     steps = iter([None, {}, None, None, {}])
     eng.has_work = lambda: True
     eng.step = lambda: next(steps)
-    assert eng.run_until_drained(max_iters=10) == 4
+    assert serve.drain(eng, max_iters=10) == 4
     assert next(steps) == {}
+    eng.has_work = lambda: False
+    assert serve.drain(eng, max_iters=10) == 0
 
 
 def test_serve_entry_point_runs_on_cpu(capsys):
@@ -135,13 +197,32 @@ def test_serve_entry_point_runs_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(spec_draft=("cfg", "params")), dict(role="prefill"),
-    dict(role="decode"), dict(packed_prefill=False),
-    dict(fused_decode=False), dict(handoff_quantize=True)],
+    dict(role="prefill"), dict(role="decode"), dict(handoff_quantize=True)],
     ids=lambda kw: next(iter(kw)) + "=" + str(next(iter(kw.values()))))
 def test_unported_flags_raise(kwargs):
     with pytest.raises(NotImplementedError):
         make_engine(**kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(spec_draft=(TCFG, TPARAMS)), dict(packed_prefill=False),
+    dict(fused_decode=False)],
+    ids=["spec_draft", "packed_prefill=False", "fused_decode=False"])
+def test_ported_flags_are_accepted(kwargs):
+    spec = "spec_draft" in kwargs
+    eng = Engine(TCFG, TPARAMS, EngineConfig(spec_k=2 if spec else 0),
+                 SlideBatching(), device="cpu", **kwargs)
+    assert eng.packed_prefill == kwargs.get("packed_prefill", True)
+    assert eng.fused_decode == kwargs.get("fused_decode", True)
+    assert (eng.draft is not None) == spec
+    if spec:
+        assert eng.draft.pool.device == eng.device
+        assert eng.draft.pool.kv.dtype == eng.pool.kv.dtype
+    eng.kill()
+    # a draft is only built when speculating
+    plain = make_engine(spec_draft=(TCFG, TPARAMS))
+    assert plain.draft is None
+    plain.kill()
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -158,7 +239,7 @@ def test_ported_transfer_and_tier_flags_are_accepted(kwargs):
 
 
 def test_unported_spec_k_and_families_raise():
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="spec_draft"):
         Engine(TCFG, TPARAMS, EngineConfig(spec_k=2), SlideBatching(),
                device="cpu")
     moe = t_get_smoke("qwen2_moe_a2_7b")

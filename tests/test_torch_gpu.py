@@ -8,9 +8,11 @@ import torch
 
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.block_gather import block_gather
-from repro_torch.kernels.chunked_prefill import packed_prefill_attention
+from repro_torch.kernels.chunked_prefill import (chunked_prefill_attention,
+                                                 packed_prefill_attention)
 from repro_torch.kernels.kv_quant import kv_block_dequantize, kv_block_quantize
 from repro_torch.kernels.paged_attention import paged_decode_attention
+from repro_torch.kernels.spec_verify import packed_verify_attention
 
 pytestmark = pytest.mark.gpu
 
@@ -98,6 +100,111 @@ def test_packed_prefill_matches_plain(cuda, dtype, case):
                                    **tol(dtype))
 
 
+CHUNKED_CASES = [
+    # b, sq, smax, h, hkv, hd, cache_lens
+    (1, 512, 1024, 16, 16, 64, [512]),                  # qwen1.5 ingest
+    (1, 16, 1024, 16, 16, 64, [320]),                   # qwen1.5 tail chunk
+    (3, 64, 192, 28, 4, 128, [64, 192, 125]),           # qwen2-7b
+    (2, 40, 64, 6, 2, 32, [64, 43]),                    # ragged
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CHUNKED_CASES)
+def test_chunked_prefill_matches_plain(cuda, dtype, case):
+    b, sq, smax, h, hkv, hd, lens = case
+    args = prefill_inputs(cuda, dtype, b, sq, smax, h, hkv, hd, lens)
+    out = chunked_prefill_attention(*args)
+    torch.cuda.synchronize()
+    want = ref.chunked_prefill_attention_ref(*args)
+    torch.testing.assert_close(out.float(), want.float(), **tol(dtype))
+
+
+def test_chunked_prefill_rows_before_position_zero_are_zero(cuda):
+    """cache_lens < Sq puts the first rows at negative positions: they
+    see no key and are 0, as in the TPU kernel (the plain version, a
+    softmax over all-masked scores, is not defined there); the rest
+    match the plain version."""
+    q, kc, vc, _ = prefill_inputs(cuda, torch.float32, 2, 32, 64, 4, 2, 16,
+                                  [0, 0])
+    lens = torch.tensor([20, 32], dtype=torch.int32, device=cuda)
+    out = chunked_prefill_attention(q, kc, vc, lens)
+    want = ref.chunked_prefill_attention_ref(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0, :12], torch.zeros_like(out[0, :12]))
+    torch.testing.assert_close(out[0, 12:], want[0, 12:], **tol(torch.float32))
+    torch.testing.assert_close(out[1], want[1], **tol(torch.float32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", PREFILL_CASES)
+def test_chunked_is_packed_per_segment_bitwise(cuda, dtype, case):
+    """The JAX contract on the card: per segment, the packed kernel is the
+    chunked kernel run alone at cache_lens = ctx_lens + Sq, bit for bit."""
+    s, sq, smax, h, hkv, hd, ctx = case
+    q, kc, vc, cl = prefill_inputs(cuda, dtype, s, sq, smax, h, hkv, hd, ctx)
+    packed = packed_prefill_attention(q, kc, vc, cl)
+    for i in range(s):
+        one = chunked_prefill_attention(q[i:i + 1].contiguous(),
+                                        kc[i:i + 1].contiguous(),
+                                        vc[i:i + 1].contiguous(),
+                                        cl[i:i + 1] + sq)
+        torch.cuda.synchronize()
+        assert torch.equal(one[0], packed[i])
+
+
+def verify_inputs(dev, dtype, n_seg, depth, h, hkv, hd, page, maxp, base,
+                  n_pages=160, seed=0):
+    """Rows (seg, j), j = 0..depth at length base[seg] + j + 1, over a
+    compact (n_seg + 1, maxp) table whose last row is the zero pad row;
+    two padding rows point at it with length 0."""
+    rng = np.random.default_rng(seed)
+    rows = n_seg * (depth + 1) + 2
+    q = torch.as_tensor(rng.standard_normal((rows, h, hd)), dtype=dtype)
+    kp = torch.as_tensor(rng.standard_normal((n_pages, page, hkv, hd)),
+                         dtype=dtype)
+    vp = torch.as_tensor(rng.standard_normal((n_pages, page, hkv, hd)),
+                         dtype=dtype)
+    bt = np.zeros((n_seg + 1, maxp), np.int32)
+    bt[:n_seg] = rng.integers(1, n_pages, (n_seg, maxp))
+    seg = np.full(rows, n_seg, np.int32)
+    seg[:-2] = np.repeat(np.arange(n_seg), depth + 1)
+    lens = np.zeros(rows, np.int32)
+    lens[:-2] = (np.repeat(base, depth + 1)
+                 + np.tile(np.arange(depth + 1), n_seg) + 1)
+    return ([t.to(dev) for t in (q, kp, vp, torch.as_tensor(bt),
+                                 torch.as_tensor(lens))],
+            torch.as_tensor(seg))
+
+
+VERIFY_CASES = [
+    # n_seg, depth, h, hkv, hd, page, maxp, base lengths
+    (16, 2, 16, 16, 64, 16, 48, [1, 15, 16, 30, 64, 100, 200, 333, 400,
+                                 500, 511, 512, 513, 600, 700, 760]),
+    (5, 1, 28, 4, 128, 16, 12, [0, 40, 77, 150, 180]),       # qwen2-7b
+    (3, 3, 4, 2, 16, 8, 5, [3, 17, 30]),                      # smoke
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", VERIFY_CASES)
+def test_packed_verify_matches_plain_and_decode_bitwise(cuda, dtype, case):
+    (q, kp, vp, bt, ln), seg = verify_inputs(cuda, dtype, *case)
+    out = packed_verify_attention(q, kp, vp, bt, ln, seg)
+    torch.cuda.synchronize()
+    want = ref.packed_verify_attention_ref(q, kp, vp, bt, ln, seg)
+    # the two padding rows (length 0) see no key: 0, as in the TPU kernel
+    # (the plain version's softmax over all-masked scores is not defined)
+    torch.testing.assert_close(out[:-2].float(), want[:-2].float(),
+                               **tol(dtype))
+    assert torch.equal(out[-2:], torch.zeros_like(out[-2:]))
+    # each row is the decode kernel's row on its gathered table, bitwise
+    gathered = bt[seg.to(cuda).long()].contiguous()
+    dec = paged_decode_attention(q, kp, vp, gathered, ln)
+    torch.cuda.synchronize()
+    assert torch.equal(out, dec)
+
+
 def test_dispatch_routes_cuda_tensors_to_the_kernels(cuda):
     d0 = paged_decode_attention.launches
     p0 = packed_prefill_attention.launches
@@ -109,6 +216,14 @@ def test_dispatch_routes_cuda_tensors_to_the_kernels(cuda):
     assert packed_prefill_attention.launches == p0 + 1
     assert ops.launch_counts()["paged_decode_attention"] == d0 + 1
     assert ops.launch_counts()["packed_prefill_attention"] == p0 + 1
+    c0 = chunked_prefill_attention.launches
+    v0 = packed_verify_attention.launches
+    ops.chunked_prefill_attention(*prefill_inputs(cuda, torch.float32,
+                                                  *CHUNKED_CASES[3]))
+    args, seg = verify_inputs(cuda, torch.float32, *VERIFY_CASES[2])
+    ops.packed_verify_attention(*args, seg)
+    assert ops.launch_counts()["chunked_prefill_attention"] == c0 + 1
+    assert ops.launch_counts()["packed_verify_attention"] == v0 + 1
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -141,6 +256,39 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         packed_prefill_attention(q2.half(), kc.half(), vc.half(), cl)
     assert paged_decode_attention.launches == n0
     assert packed_prefill_attention.launches == p0
+    c0 = chunked_prefill_attention.launches
+    with pytest.raises(ValueError):
+        chunked_prefill_attention(q2, kc, vc, cl[:1])
+    with pytest.raises(TypeError):
+        chunked_prefill_attention(q2, kc, vc, cl.long())
+    with pytest.raises(TypeError):
+        chunked_prefill_attention(q2.double(), kc.double(), vc.double(), cl)
+    with pytest.raises(ValueError):
+        chunked_prefill_attention(q2.cpu(), kc, vc, cl)
+    assert chunked_prefill_attention.launches == c0
+    (vq, vk, vv, vbt, vln), seg = verify_inputs(cuda, torch.float32,
+                                                *VERIFY_CASES[2])
+    v0 = packed_verify_attention.launches
+    n_tab = vbt.shape[0]
+    for bad in (seg.clone().fill_(n_tab), seg.clone().fill_(-1)):
+        with pytest.raises(IndexError):
+            packed_verify_attention(vq, vk, vv, vbt, vln, bad)
+    with pytest.raises(TypeError):
+        packed_verify_attention(vq, vk, vv, vbt, vln, seg.float())
+    with pytest.raises(ValueError):
+        packed_verify_attention(vq, vk, vv, vbt, vln, seg[:-1])
+    with pytest.raises(ValueError):
+        packed_verify_attention(vq, vk, vv, vbt, vln[:-1], seg)
+    with pytest.raises(TypeError):
+        packed_verify_attention(vq.half(), vk.half(), vv.half(), vbt, vln,
+                                seg)
+    with pytest.raises(TypeError):
+        packed_verify_attention(vq, vk, vv, vbt.long(), vln, seg)
+    with pytest.raises(ValueError):
+        packed_verify_attention(vq, vk, vv, vbt.cpu(), vln, seg)
+    # a CUDA row_seg is fetched for the check, then launched
+    packed_verify_attention(vq, vk, vv, vbt, vln, seg.to(cuda))
+    assert packed_verify_attention.launches == v0 + 1
 
 
 def test_engine_on_card_matches_greedy_forward(cuda):
@@ -329,6 +477,75 @@ def test_lanes_off_serve_on_card(cuda):
     assert counts["packed_prefill_attention"] == (
         cfg.n_layers * st.packed_prefill_calls)
     assert counts["block_gather"] == eng.pool.gather_calls
+    for r, prompt in res.requests:
+        assert eng.outputs[r.rid] == greedy_generate(cfg, params, prompt,
+                                                     r.output_len)
+    eng.kill()
+
+
+@pytest.mark.parametrize("draft_seed", [0, 7], ids=["same", "other"])
+def test_spec_engine_on_card_matches_greedy_forward(cuda, draft_seed):
+    """Smoke-width serve with speculative decoding (spec_k = 2) on the
+    card, the draft's weights the target's or another seed's: every stream
+    equals greedy decoding by the port's forward, and the verify kernel
+    launched once per layer per decode launch."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import serve
+    from repro_torch.models.model import greedy_generate, init_params
+
+    cfg = get_smoke("qwen1_5_0_5b")
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                         device=cuda)
+    draft = params if draft_seed == 0 else init_params(
+        cfg, torch.Generator(cuda).manual_seed(draft_seed), device=cuda)
+    ops.reset_launch_counts()
+    res = serve.serve(cfg, params, serve.SMOKE, device=cuda, spec_k=2,
+                      draft=(cfg, draft))
+    counts = ops.launch_counts()
+    eng = res.engine
+    st = eng.stats
+    assert st.spec_proposed > 0
+    assert st.spec_proposed == st.spec_accepted + st.spec_rejected
+    if draft_seed:
+        assert st.spec_rejected > 0
+    assert counts["packed_verify_attention"] == cfg.n_layers * \
+        st.decode_launches
+    assert counts["paged_decode_attention"] == cfg.n_layers * \
+        eng.draft.syncs
+    assert counts["chunked_prefill_attention"] == cfg.n_layers * (
+        eng.draft.launches - eng.draft.syncs)
+    assert st.host_syncs == (st.decode_launches + st.packed_prefill_calls
+                             + eng.draft.syncs)
+    for r, prompt in res.requests:
+        assert eng.outputs[r.rid] == greedy_generate(cfg, params, prompt,
+                                                     r.output_len)
+    eng.kill()
+
+
+def test_per_request_engine_on_card_matches_greedy_forward(cuda):
+    """Smoke-width serve on the per-request paths (packed_prefill=False,
+    fused_decode=False) on the card: exact streams, the chunked kernel
+    launched once per layer per prefill_chunk call."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import serve
+    from repro_torch.models.model import greedy_generate, init_params
+
+    cfg = get_smoke("qwen1_5_0_5b")
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(2),
+                         device=cuda)
+    ops.reset_launch_counts()
+    res = serve.serve(cfg, params, serve.SMOKE, device=cuda,
+                      packed_prefill=False, fused_decode=False)
+    counts = ops.launch_counts()
+    eng = res.engine
+    st = eng.stats
+    assert st.packed_prefill_calls == 0 and st.prefill_chunk_calls > 0
+    assert counts["chunked_prefill_attention"] == cfg.n_layers * \
+        st.prefill_chunk_calls
+    assert counts["paged_decode_attention"] == cfg.n_layers * \
+        st.decode_launches
+    assert counts["packed_prefill_attention"] == 0
+    assert st.host_syncs == st.decode_launches + len(res.requests)
     for r, prompt in res.requests:
         assert eng.outputs[r.rid] == greedy_generate(cfg, params, prompt,
                                                      r.output_len)

@@ -20,7 +20,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "import repro_torch.serving, repro_torch.launch.serve\n"
         "import repro_torch.kernels.build, repro_torch.kernels.kv_quant\n"
         "import repro_torch.kernels.block_gather\n"
-        "import repro_torch.serving.transfer\n"
+        "import repro_torch.kernels.spec_verify\n"
+        "import repro_torch.serving.transfer, repro_torch.serving.spec\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'repro'\n"
         "             or m.startswith('repro.'))\n"

@@ -1,8 +1,8 @@
 """The plain PyTorch versions of the ported kernels against the JAX
-package on the ``tests/test_kernels.py`` sweep: the Pallas kernels in
-interpret mode (``repro.kernels.ops``) and the ``ref.py`` oracles, fp32 at
-2e-5 and bf16 at 2e-2.  The port's dispatch sends CPU tensors to these
-plain versions."""
+package on the ``tests/test_kernels.py`` and ``tests/test_spec_decode.py``
+sweeps: the Pallas kernels in interpret mode (``repro.kernels.ops``) and
+the ``ref.py`` oracles, fp32 at 2e-5 and bf16 at 2e-2.  The port's
+dispatch sends CPU tensors to these plain versions."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -92,6 +92,113 @@ def test_packed_prefill_plain_matches_jax(dtype, s, sq, smax, h, hkv, hd,
         f32(got), atol=0, rtol=0)
 
 
+CHUNKED_SWEEP = [      # tests/test_kernels.py::test_chunked_prefill_sweep
+    (2, 8, 64, 4, 2, 32, 16),
+    (1, 16, 128, 8, 8, 16, 32),
+    (3, 4, 40, 6, 2, 64, 16),   # smax not a multiple of kvb
+]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("b,sq,smax,h,hkv,hd,kvb", CHUNKED_SWEEP)
+def test_chunked_prefill_plain_matches_jax(dtype, b, sq, smax, h, hkv, hd,
+                                           kvb):
+    rng = np.random.default_rng(b * 7 + sq)
+    q_j, q_t = both(rng.standard_normal((b, sq, h, hd)), dtype)
+    k_j, k_t = both(rng.standard_normal((b, smax, hkv, hd)), dtype)
+    v_j, v_t = both(rng.standard_normal((b, smax, hkv, hd)), dtype)
+    ln_j, ln_t = ints(rng.integers(sq, smax + 1, b))
+    got = tops.chunked_prefill_attention(q_t, k_t, v_t, ln_t)
+    assert got.dtype == DTYPES[dtype][1] and got.shape == q_t.shape
+    for want in (jops.chunked_prefill_attention(q_j, k_j, v_j, ln_j,
+                                                kv_block=kvb),
+                 jref.chunked_prefill_attention_ref(q_j, k_j, v_j, ln_j)):
+        np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
+
+
+def test_chunked_prefill_plain_fresh_prompt():
+    """cache_len == Sq: a prompt with no prefix, causal within the chunk
+    (``tests/test_kernels.py::test_chunked_prefill_fresh_prompt``)."""
+    b, sq, h, hkv, hd = 2, 12, 4, 2, 16
+    rng = np.random.default_rng(12)
+    q_j, q_t = both(rng.standard_normal((b, sq, h, hd)), "float32")
+    k_j, k_t = both(rng.standard_normal((b, sq, hkv, hd)), "float32")
+    v_j, v_t = both(rng.standard_normal((b, sq, hkv, hd)), "float32")
+    ln_j, ln_t = ints(np.full(b, sq))
+    got = tops.chunked_prefill_attention(q_t, k_t, v_t, ln_t)
+    want = jops.chunked_prefill_attention(q_j, k_j, v_j, ln_j, kv_block=8)
+    np.testing.assert_allclose(f32(got), f32(want), atol=2e-5)
+    # row 0 sees only key 0: its output is v[0] exactly up to rounding
+    np.testing.assert_allclose(got[:, 0].numpy(),
+                               v_t[:, 0].repeat_interleave(h // hkv, 1)
+                               .numpy(), atol=1e-6)
+
+
+def test_chunked_plain_is_packed_plain_per_segment_bitwise():
+    """The JAX contract of the two prefill kernels: per segment, packed
+    equals one chunked call at ``cache_lens = ctx_lens + Sq``, bit for
+    bit (each segment computed alone against the pack)."""
+    rng = np.random.default_rng(4)
+    s, sq, smax, h, hkv, hd = 3, 16, 64, 8, 2, 32
+    q = torch.as_tensor(rng.standard_normal((s, sq, h, hd)),
+                        dtype=torch.float32)
+    kc = torch.as_tensor(rng.standard_normal((s, smax, hkv, hd)),
+                         dtype=torch.float32)
+    vc = torch.as_tensor(rng.standard_normal((s, smax, hkv, hd)),
+                         dtype=torch.float32)
+    ctx = torch.tensor([0, 33, 48], dtype=torch.int32)
+    packed = tops.packed_prefill_attention(q, kc, vc, ctx)
+    for i in range(s):
+        one = tops.chunked_prefill_attention(q[i:i + 1], kc[i:i + 1],
+                                             vc[i:i + 1], ctx[i:i + 1] + sq)
+        assert torch.equal(one[0], packed[i])
+
+
+def verify_case(rng, n_seg, depth, page, hkv, g, hd, n_pages, maxp, base):
+    """``tests/test_spec_decode.py::test_packed_verify_kernel_contract``'s
+    layout: rows (seg, j), j = 0..depth, per-row length l_kv + j + 1."""
+    tables = rng.permutation(np.arange(1, n_pages))[:n_seg * maxp]
+    tables = tables.reshape(n_seg, maxp).astype(np.int32)
+    row_seg = np.repeat(np.arange(n_seg, dtype=np.int32), depth + 1)
+    lengths = np.concatenate(
+        [b + np.arange(depth + 1, dtype=np.int32) + 1 for b in base])
+    q = rng.standard_normal((len(row_seg), hkv * g, hd))
+    kp = rng.standard_normal((n_pages, page, hkv, hd))
+    vp = rng.standard_normal((n_pages, page, hkv, hd))
+    return q, kp, vp, tables, lengths.astype(np.int32), row_seg
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("n_seg,depth,page,hkv,g,hd,n_pages,maxp,base", [
+    (3, 2, 8, 2, 4, 16, 24, 3, [9, 14, 20]),        # test_spec_decode.py
+    (4, 1, 16, 4, 1, 64, 20, 4, [0, 15, 16, 47]),   # MHA, block edges
+    (2, 3, 16, 2, 7, 128, 12, 5, [60, 3]),          # Qwen2-7B's G = 7
+])
+def test_packed_verify_plain_matches_jax(dtype, n_seg, depth, page, hkv, g,
+                                         hd, n_pages, maxp, base):
+    rng = np.random.default_rng(n_seg * 10 + depth)
+    q, kp, vp, tables, lengths, row_seg = verify_case(
+        rng, n_seg, depth, page, hkv, g, hd, n_pages, maxp, base)
+    q_j, q_t = both(q, dtype)
+    k_j, k_t = both(kp, dtype)
+    v_j, v_t = both(vp, dtype)
+    bt_j, bt_t = ints(tables)
+    ln_j, ln_t = ints(lengths)
+    rs_j, rs_t = ints(row_seg)
+    got = tops.packed_verify_attention(q_t, k_t, v_t, bt_t, ln_t, rs_t)
+    assert got.dtype == DTYPES[dtype][1] and got.shape == q_t.shape
+    for want in (jops.packed_verify_attention(q_j, k_j, v_j, bt_j, ln_j,
+                                              rs_j),
+                 jref.packed_verify_attention_ref(q_j, k_j, v_j, bt_j, ln_j,
+                                                  rs_j)):
+        np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
+    # each verify row is the decode row on its gathered table, bitwise
+    gathered = tops.paged_decode_attention(q_t, k_t, v_t,
+                                           bt_t[rs_t.long()].contiguous(),
+                                           ln_t)
+    assert torch.equal(got, gathered)
+
+
 def test_decode_plain_is_the_dense_decode_attention():
     """Paged plain version == the model's dense decode attention on the
     same logical KV (the engine relies on this)."""
@@ -123,14 +230,30 @@ def test_cpu_tensors_never_launch_a_kernel():
     blocks = torch.ones(1, 2, 2, 4, 1, 8)
     tops.kv_block_dequantize(*tops.kv_block_quantize(blocks))
     tops.block_gather(torch.zeros(3, 8, 2, 16), torch.tensor([2, 0]))
+    tops.packed_verify_attention(*args[:3], args[3], args[4],
+                                 torch.zeros(1, dtype=torch.int32))
+    tops.chunked_prefill_attention(torch.zeros(1, 4, 2, 16),
+                                   torch.zeros(1, 8, 2, 16),
+                                   torch.zeros(1, 8, 2, 16),
+                                   torch.full((1,), 4, dtype=torch.int32))
     assert tops.launch_counts() == {
         "paged_decode_attention": 0, "packed_prefill_attention": 0,
+        "chunked_prefill_attention": 0, "packed_verify_attention": 0,
         "kv_block_quantize": 0, "kv_block_dequantize": 0, "block_gather": 0}
     # the CUDA wrapper itself refuses CPU tensors instead of falling back
     with pytest.raises(ValueError):
         paged_decode_attention(*args)
     with pytest.raises(ValueError):
         tops.paged_decode_attention(*[a.to("meta") for a in args])
+    from repro_torch.kernels.chunked_prefill import chunked_prefill_attention
+    from repro_torch.kernels.spec_verify import packed_verify_attention
+    with pytest.raises(ValueError):
+        packed_verify_attention(*args, torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        chunked_prefill_attention(torch.zeros(1, 4, 2, 16),
+                                  torch.zeros(1, 8, 2, 16),
+                                  torch.zeros(1, 8, 2, 16),
+                                  torch.full((1,), 4, dtype=torch.int32))
 
 
 def test_launch_counters_count_exactly_from_many_threads():
@@ -207,3 +330,26 @@ def test_first_build_runs_once_when_threads_race(monkeypatch):
         assert len(builds) == 1 and len({id(lib) for lib in libs}) == 1
     finally:
         build._load.cache_clear()
+
+
+def test_c_signatures_match_the_sources():
+    """Every C entry point's ctypes argument list matches its declaration
+    in ``csrc/`` in count and kind (pointer, int, float, long long): a
+    mismatch would only show at the first launch on the card."""
+    import ctypes
+    import re
+
+    from repro_torch.kernels import build
+
+    kinds = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
+             "float": ctypes.c_float, "longlong": ctypes.c_longlong}
+    src = "".join(p.read_text() for p in build.sources())
+    declared = dict(re.findall(r'extern "C" int (\w+)\((.*?)\)', src, re.S))
+    assert set(declared) == set(build.SIGNATURES)
+    for name, argtypes in build.SIGNATURES.items():
+        got = []
+        for arg in declared[name].split(","):
+            words = arg.replace("const", "").split()
+            kind = "".join(words[:-1]) + ("*" if "*" in arg else "")
+            got.append(kinds["void*" if "*" in kind else kind])
+        assert got == argtypes, name

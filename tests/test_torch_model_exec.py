@@ -1,6 +1,7 @@
-"""``decode_step`` and ``prefill_packed`` of the port against the JAX
-package's ``serving.model_exec`` on the same pool, tables and inputs:
-equal argmax tokens and the updated pool allclose at 1e-5 — including the
+"""``decode_step``, ``decode_batch``, ``verify_step``, ``prefill_packed``
+and ``prefill_chunk`` of the port against the JAX package's
+``serving.model_exec`` on the same pool, tables and inputs: equal argmax
+tokens, logits and the updated pool allclose at 1e-5 — including the
 padding rows, whose writes land in the null block 0."""
 import jax.numpy as jnp
 import numpy as np
@@ -63,6 +64,113 @@ def test_decode_step_matches_jax(arch):
                                   np.asarray(want_tok)[:3])
     assert_pools_close(got_pool, want_pool)
     assert not np.allclose(t_pool[:, :, 0, 0].numpy(), pool[:, :, 0, 0])
+
+
+@pytest.mark.parametrize("arch", ["qwen1_5_0_5b", "qwen2_7b"])
+def test_decode_batch_matches_jax(arch):
+    """The logits decode (the engine's ``fused_decode=False`` path): the
+    exact batch, no padding, (B, V) logits."""
+    cfg, tcfg, jparams, tparams, pool, rng = setup(arch, 3)
+    tables = np.array([[3, 7, 1, 0], [5, 0, 0, 0], [2, 9, 11, 4]], np.int32)
+    lens = np.array([40, 9, 50], np.int32)
+    tokens = rng.integers(1, cfg.vocab, 3).astype(np.int32)
+    want_logits, want_pool = jexec.decode_batch(
+        cfg, jparams, jnp.asarray(pool), jnp.asarray(tokens),
+        jnp.asarray(tables), jnp.asarray(lens))
+    t_pool = torch.as_tensor(pool.copy())
+    got_logits, got_pool = texec.decode_batch(
+        tcfg, tparams, t_pool, *map(torch.as_tensor, (tokens, tables, lens)))
+    assert got_pool is t_pool and got_logits.shape == (3, cfg.vocab)
+    np.testing.assert_allclose(got_logits.numpy(), np.asarray(want_logits),
+                               atol=1e-5, rtol=1e-5)
+    assert_pools_close(got_pool, want_pool)
+
+
+def verify_inputs(cfg, rng, segs):
+    """The arrays ``Engine._run_decode_spec`` builds for requests of
+    (table, l_kv, depth): one row per (request, draft position), tables
+    compact and padded with an all-zero row that the padding rows use."""
+    n_seg = len(segs)
+    n_rows = sum(1 + d for _, _, d in segs)
+    r_b = texec.seg_bucket(n_rows)
+    s_b = texec.seg_bucket(n_seg + 1)
+    maxp = texec.table_bucket(max(len(t) for t, _, _ in segs))
+    tokens = np.zeros(r_b, np.int32)
+    lens = np.zeros(r_b, np.int32)
+    row_seg = np.full(r_b, n_seg, np.int32)
+    tables = np.zeros((s_b, maxp), np.int32)
+    ri = 0
+    for i, (t, l_kv, d) in enumerate(segs):
+        tables[i, :len(t)] = t
+        for j in range(d + 1):
+            tokens[ri] = rng.integers(1, cfg.vocab)
+            lens[ri] = l_kv + j
+            row_seg[ri] = i
+            ri += 1
+    return tokens, tables, lens, row_seg, n_rows
+
+
+@pytest.mark.parametrize("arch", ["qwen1_5_0_5b", "qwen2_7b"])
+def test_verify_step_matches_jax(arch):
+    cfg, tcfg, jparams, tparams, pool, rng = setup(arch, 4)
+    # depths 2, 0, 1 (one request runs plain), a block edge crossed by the
+    # second draft position of the first; 6 rows padded to 8, 3 segments
+    # to seg_bucket(4) = 4 table rows
+    segs = [([3, 7, 1], 31, 2), ([5], 9, 0), ([2, 9, 11, 4], 50, 1)]
+    tokens, tables, lens, row_seg, n_rows = verify_inputs(cfg, rng, segs)
+    want_tok, want_pool = jexec.verify_step(
+        cfg, jparams, jnp.asarray(pool), jnp.asarray(tokens),
+        jnp.asarray(tables), jnp.asarray(lens), jnp.asarray(row_seg))
+    t_pool = torch.as_tensor(pool.copy())
+    got_tok, got_pool = texec.verify_step(
+        tcfg, tparams, t_pool,
+        *map(torch.as_tensor, (tokens, tables, lens, row_seg)))
+    assert got_pool is t_pool and got_tok.dtype == torch.int32
+    np.testing.assert_array_equal(got_tok.numpy()[:n_rows],
+                                  np.asarray(want_tok)[:n_rows])
+    assert_pools_close(got_pool, want_pool)
+
+
+@pytest.mark.parametrize("arch", ["qwen1_5_0_5b", "qwen2_7b"])
+@pytest.mark.parametrize("ctx,n,table", [
+    (0, 20, [6, 2]),            # a fresh prompt: 20 tokens padded to 32
+    (37, 9, [8, 2, 13]),        # a chunk after 37 cached tokens
+])
+def test_prefill_chunk_matches_jax(arch, ctx, n, table):
+    """One request's chunk: the (1, c, V) logits of the real rows and the
+    pool, the padding's writes through the request's table included.
+    The null block 0 (where padding past the table's blocks lands, more
+    than once per slot) is left out of the comparison."""
+    cfg, tcfg, jparams, tparams, pool, rng = setup(arch, 5)
+    c = texec.bucket(n)
+    span = texec.staging_span(ctx, c, 64, BS)
+    assert span == 64               # the reference's max_ctx there too
+    toks = np.zeros((1, c), np.int32)
+    toks[0, :n] = rng.integers(1, cfg.vocab, n)
+    tab = np.zeros((1, span // BS), np.int32)
+    tab[0, :len(table)] = table
+    ctx_a = np.array([ctx], np.int32)
+    want_logits, want_pool = jexec.prefill_chunk(
+        cfg, jparams, jnp.asarray(pool), jnp.asarray(toks),
+        jnp.asarray(tab), jnp.asarray(ctx_a), span)
+    t_pool = torch.as_tensor(pool.copy())
+    got_logits, got_pool = texec.prefill_chunk(
+        tcfg, tparams, t_pool, *map(torch.as_tensor, (toks, tab, ctx_a)),
+        span)
+    assert got_pool is t_pool and got_logits.shape == (1, c, cfg.vocab)
+    np.testing.assert_allclose(got_logits.numpy()[0, :n],
+                               np.asarray(want_logits)[0, :n], atol=1e-5,
+                               rtol=1e-5)
+    assert int(got_logits[0, n - 1].argmax()) == int(
+        jnp.argmax(want_logits[0, n - 1]))
+    assert_pools_close(got_pool[:, :, 1:], np.asarray(want_pool)[:, :, 1:])
+
+
+def test_staging_span_rounds_only_where_the_reference_cannot_reshape():
+    for ctx, c in [(0, 16), (100, 512), (500, 512), (0, 1024)]:
+        assert texec.staging_span(ctx, c, 1024, 16) == 1024
+    assert texec.staging_span(16, 1024, 1024, 16) == 1040
+    assert texec.staging_span(1, 1024, 1024, 16) == 1040   # ref: 1025
 
 
 def packed_inputs(cfg, rng, segs):
