@@ -10,7 +10,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
   1. env     — the card's name and power limit (nvidia-smi), torch / CUDA.
   2. build   — every ``src/repro_torch/csrc/*.cu`` compiled with nvcc for
                sm_90a (``-Xptxas -v``): registers, shared memory and spills
-               of each kernel.
+               of each kernel; no instance of the tensor-core prefill body
+               (``packed_prefill.cu``) may spill.
   3. kernels — each CUDA kernel held against its plain PyTorch version at
                the serve phase's shapes (Qwen1.5-0.5B: H = Hkv = 16,
                hd 64, page 16) and, for the attention kernels, at
@@ -27,6 +28,10 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                timed with CUDA events (cold and warm L2) beside the plain
                version and, where one PyTorch call computes the same
                function, that call (a yardstick the port never calls).
+               The prefill kernels' bf16 instances are also held at 2e-2
+               and timed beside SDPA in bf16 at the same shapes (printed,
+               not in the JSON line); their bounds take the tensor cores'
+               rate (fp32 as 3xTF32: 165 TFLOP/s; bf16: 989 TFLOP/s).
   4. serve   — the port's entry point ``repro_torch.launch.serve`` at the
                full width of Qwen1.5-0.5B (24 layers, fp32, random weights
                from seed 0): two waves of multi-priority requests with
@@ -71,6 +76,7 @@ The last two lines are the ``{"kernels": ...}`` JSON and the
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -84,6 +90,10 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12       # H100 SXM, fp32 outside the tensor cores
+# fp32-accurate products on the tensor cores: three TF32 products (495
+# TFLOP/s dense) per product, as the prefill kernels compute fp32
+TF32X3_FLOPS_PER_S = 495e12 / 3
+BF16_FLOPS_PER_S = 989e12      # H100 SXM, dense bf16 tensor cores
 TOL = dict(atol=2e-5, rtol=2e-5)
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 
@@ -167,7 +177,12 @@ def prefill_case(rng, s, sq, smax, h, hkv, hd, ctx, dev):
 def prefill_bound(q, kc, ctx) -> tuple[float, str]:
     """Each segment reads the K/V rows up to its causal horizon
     min(Smax, ctx + Sq) once; query row r sees min(Smax, ctx + r + 1)
-    keys at 4 flops per (head, key, dim)."""
+    keys at 4 flops per (head, key, dim).  The operations run at the
+    tensor cores' rate for the kernel's arithmetic: 165 TFLOP/s for fp32
+    (3xTF32: three TF32 products at 495 TFLOP/s per fp32-accurate
+    product), 989 TFLOP/s for bf16; bytes at the element size.  (Until
+    the kernels ran on the tensor cores, fp32 was bounded at the CUDA
+    cores' 67 TFLOP/s.)"""
     s, sq, h, hd = q.shape
     smax, hkv = kc.shape[1], kc.shape[2]
     keys = 0
@@ -176,14 +191,17 @@ def prefill_bound(q, kc, ctx) -> tuple[float, str]:
         r = np.arange(sq)
         keys += int(np.minimum(smax, c + r + 1).sum())
         kv_rows += min(smax, c + sq)
-    nbytes = (2 * kv_rows * hkv * hd + 2 * s * sq * h * hd + s) * 4
+    size = q.element_size()
+    nbytes = (2 * kv_rows * hkv * hd + 2 * s * sq * h * hd) * size + s * 4
     flops = 4 * keys * h * hd
-    return bound(nbytes, flops)
+    return bound(nbytes, flops, BF16_FLOPS_PER_S if q.dtype ==
+                 torch.bfloat16 else TF32X3_FLOPS_PER_S)
 
 
-def bound(nbytes: int, flops: int) -> tuple[float, str]:
+def bound(nbytes: int, flops: int,
+          flops_per_s: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -238,6 +256,27 @@ def turns(kernel, plain) -> tuple[list, list]:
     p0 = time_ms(plain)
     k = [time_ms(kernel), time_ms(kernel)]
     return k, [p0, time_ms(plain)]
+
+
+def bf16_prefill(name, kernel, plain, args, ctx, rows=None) -> dict:
+    """The bf16 instance of a prefill kernel at an fp32 row's shape:
+    held at 2e-2 against its plain version and timed beside SDPA in bf16
+    (printed; the JSON line keeps the fp32 rows)."""
+    import torch.nn.functional as F
+    q, kc, vc, _ = args
+    err = compare(f"{name} (bf16)", kernel(*args), plain(*args), rows)
+    sdpa = sdpa_inputs(q, kc, vc, ctx)
+    k, p = turns(lambda: kernel(*args), lambda: plain(*args))
+    b = prefill_bound(q, kc, ctx)
+    return dict(
+        max_abs_err=err, ms=float(np.mean(k)),
+        warm_l2_ms=time_ms(lambda: kernel(*args), cold_l2=False),
+        plain_ms=float(np.mean(p)), library_ms=time_ms(
+            lambda: F.scaled_dot_product_attention(
+                sdpa[0], sdpa[1], sdpa[2], attn_mask=sdpa[3],
+                enable_gqa=True)),
+        bound_ms=b[0], bound_by=b[1],
+        shape=f"q {tuple(q.shape)} kv {tuple(kc.shape)} bf16")
 
 
 def kernels_phase(dev) -> dict:
@@ -313,6 +352,11 @@ def kernels_phase(dev) -> dict:
                 shape="q %s kv %s ctx %s" % (
                     tuple(q.shape), tuple(kc.shape), c["prefill"][-1])),
         }
+        results[label]["packed_prefill_attention (bf16)"] = bf16_prefill(
+            "packed_prefill_attention", packed_prefill_attention,
+            ref.packed_prefill_attention_ref,
+            [a.bfloat16() if a.is_floating_point() else a for a in p_args],
+            ctx, rows)
         if label == "qwen1.5-0.5b":
             results[label].update(slice3_kernels(rng, dev, p_args))
         for name, r in results[label].items():
@@ -424,6 +468,10 @@ def slice3_kernels(rng, dev, p_args) -> dict:
                 f"{q.shape[0]} segments)", one, packed)
 
     q, kc, vc, cl = c_args
+    c_bf16 = bf16_prefill("chunked_prefill_attention",
+                          chunked_prefill_attention,
+                          ref.chunked_prefill_attention_ref, c_bf,
+                          cl - q.shape[1])
     sdpa = sdpa_inputs(q, kc, vc, cl - q.shape[1])
     c_k, c_p = turns(lambda: chunked_prefill_attention(*c_args),
                      lambda: ref.chunked_prefill_attention_ref(*c_args))
@@ -445,6 +493,7 @@ def slice3_kernels(rng, dev, p_args) -> dict:
             bound_ms=c_bound[0], bound_by=c_bound[1],
             shape=f"q {tuple(q.shape)} kv {tuple(kc.shape)} cache_lens "
                   f"{cl.tolist()}"),
+        "chunked_prefill_attention (bf16)": c_bf16,
         # library: none; no PyTorch call reads a paged pool through a
         # block table (as for paged_decode_attention)
         "packed_verify_attention": dict(
@@ -1155,6 +1204,16 @@ def main() -> None:
         if line.startswith("==") or "Compiling entry" in line \
                 or "spill" in line or "Used" in line:
             print("  " + line.strip(), flush=True)
+    # the tensor-core prefill body keeps its fragments in registers
+    prefill_log = log.split("== packed_prefill.cu", 1)[1].split("\n==")[0]
+    spills = [m.group(0) for m in re.finditer(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", prefill_log)
+        if int(m.group(1)) or int(m.group(2))]
+    if spills:
+        fail(f"packed_prefill.cu spills: {spills}")
+    print(f"  packed_prefill.cu: "
+          f"{prefill_log.count('Compiling entry')} instances, no spill",
+          flush=True)
     print(f"  built {build.BUILD_DIR / build.LIB_NAME} in "
           f"{time.monotonic() - t0:.1f} s", flush=True)
     build.library()

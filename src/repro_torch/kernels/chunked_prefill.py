@@ -6,7 +6,10 @@ wrappers of the CUDA kernel ``csrc/packed_prefill.cu`` (port of
 Both launch one kernel body through its two C entry points, which differ
 only in where a query row sits: at ``ctx_lens[s] + r`` (packed) or at
 ``cache_lens[b] - Sq + r`` (chunked), so per segment the packed kernel is
-bitwise the chunked one at ``cache_lens = ctx_lens + Sq``.  Each wrapper
+bitwise the chunked one at ``cache_lens = ctx_lens + Sq``.  The kernel
+runs on the tensor cores: fp32 as three TF32 products per product
+(3xTF32, fp32-level error, not TF32's), bf16 as bf16 products with fp32
+accumulation.  Each wrapper
 launches the kernel on CUDA tensors and raises on anything it does not
 take; ``repro_torch.kernels.ops`` dispatches CPU tensors to the plain
 versions in ``ref.py``.  ``<wrapper>.launches`` counts each one's
@@ -46,6 +49,9 @@ def _launch(wrapper, entry: str, q, k_cache, v_cache, lens, lens_name):
         raise ValueError(f"H={h} is not a multiple of Hkv={hkv}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
+        raise ValueError("q, k_cache and v_cache must start on 16 bytes "
+                         "(the kernel copies 16-byte chunks)")
     out = torch.empty_like(q)
     err = getattr(build.library(), entry)(
         DTYPES[q.dtype], q.data_ptr(), k_cache.data_ptr(),

@@ -81,6 +81,17 @@ PREFILL_CASES = [
     (3, 64, 192, 28, 4, 128, [0, 128, 61]),                        # qwen2-7b
     (2, 16, 48, 4, 2, 16, [0, 32]),                                # smoke
     (2, 40, 64, 6, 2, 32, [24, 3]),                                # ragged
+    # the tensor-core tiling's edges: Sq not a multiple of 16 or 64, a
+    # 16-row MMA tile straddling two query heads (G = 7, Sq = 40), hd 16 /
+    # 32 / 128, Smax not a multiple of the key tile, a chunk ending at Smax,
+    # Sq = 1024 against a 1024 span
+    (2, 100, 256, 8, 2, 64, [0, 156]),                  # Sq 100, ends at Smax
+    (2, 40, 128, 28, 4, 128, [0, 88]),                  # G 7, Sq 40, hd 128
+    (2, 40, 96, 14, 2, 64, [10, 56]),                   # G 7, Smax 96
+    (3, 40, 100, 4, 1, 16, [0, 60, 30]),                # hd 16, Smax 100
+    (2, 100, 300, 6, 3, 32, [0, 200]),                  # hd 32, Smax 300
+    (2, 64, 150, 4, 4, 128, [0, 86]),                   # hd 128, Smax 150
+    (1, 1024, 1024, 16, 16, 64, [0]),                   # the max_ctx bucket
 ]
 
 
@@ -106,6 +117,11 @@ CHUNKED_CASES = [
     (1, 16, 1024, 16, 16, 64, [320]),                   # qwen1.5 tail chunk
     (3, 64, 192, 28, 4, 128, [64, 192, 125]),           # qwen2-7b
     (2, 40, 64, 6, 2, 32, [64, 43]),                    # ragged
+    (2, 100, 256, 8, 2, 64, [100, 256]),                # Sq 100, ends at Smax
+    (2, 40, 100, 28, 4, 16, [40, 100]),                 # G 7, Sq 40, hd 16
+    (2, 40, 72, 14, 2, 32, [72, 55]),                   # hd 32, Smax 72
+    (2, 64, 160, 28, 4, 128, [160, 90]),                # G 7, hd 128
+    (1, 1024, 1024, 16, 16, 64, [1024]),                # the max_ctx bucket
 ]
 
 
@@ -136,8 +152,41 @@ def test_chunked_prefill_rows_before_position_zero_are_zero(cuda):
     torch.testing.assert_close(out[1], want[1], **tol(torch.float32))
 
 
+# rows before position 0 (cache_lens < Sq): b, sq, smax, h, hkv, hd,
+# cache_lens
+NEGATIVE_CASES = [
+    (2, 100, 256, 8, 2, 64, [37, 100]),
+    (2, 40, 128, 28, 4, 128, [9, 40]),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", PREFILL_CASES)
+@pytest.mark.parametrize("case", NEGATIVE_CASES)
+def test_chunked_prefill_rows_before_position_zero_at_the_tiling_edges(
+        cuda, dtype, case):
+    """As above, at widths where a 16-row MMA tile holds rows on both
+    sides of position 0 (Sq 100, and G 7 with Sq 40)."""
+    b, sq, smax, h, hkv, hd, lens = case
+    args = prefill_inputs(cuda, dtype, b, sq, smax, h, hkv, hd, lens)
+    out = chunked_prefill_attention(*args)
+    want = ref.chunked_prefill_attention_ref(*args)
+    torch.cuda.synchronize()
+    for i, n in enumerate(lens):
+        neg = max(sq - n, 0)
+        assert torch.equal(out[i, :neg], torch.zeros_like(out[i, :neg]))
+        torch.testing.assert_close(out[i, neg:].float(),
+                                   want[i, neg:].float(), **tol(dtype))
+
+
+# every packed case, and the chunked and negative-position cases as packs
+# at ctx_lens = cache_lens - Sq
+BITWISE_CASES = PREFILL_CASES + [
+    (b, sq, smax, h, hkv, hd, [n - sq for n in lens])
+    for b, sq, smax, h, hkv, hd, lens in CHUNKED_CASES + NEGATIVE_CASES]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BITWISE_CASES)
 def test_chunked_is_packed_per_segment_bitwise(cuda, dtype, case):
     """The JAX contract on the card: per segment, the packed kernel is the
     chunked kernel run alone at cache_lens = ctx_lens + Sq, bit for bit."""
@@ -151,6 +200,25 @@ def test_chunked_is_packed_per_segment_bitwise(cuda, dtype, case):
                                         cl[i:i + 1] + sq)
         torch.cuda.synchronize()
         assert torch.equal(one[0], packed[i])
+
+
+def test_prefill_wrappers_refuse_tensors_off_16_bytes(cuda):
+    """The kernel copies q, k and v in 16-byte chunks: a contiguous view
+    that starts 4 bytes into its storage is refused before any launch."""
+    q, kc, vc, cl = prefill_inputs(cuda, torch.float32, *PREFILL_CASES[2])
+    p0 = packed_prefill_attention.launches
+    c0 = chunked_prefill_attention.launches
+    for i, t in enumerate((q, kc, vc)):
+        off = torch.empty(t.numel() + 1, device=cuda)[1:].view(t.shape)
+        off.copy_(t)
+        args = [q, kc, vc]
+        args[i] = off
+        with pytest.raises(ValueError):
+            packed_prefill_attention(*args, cl)
+        with pytest.raises(ValueError):
+            chunked_prefill_attention(*args, cl + q.shape[1])
+    assert packed_prefill_attention.launches == p0
+    assert chunked_prefill_attention.launches == c0
 
 
 def verify_inputs(dev, dtype, n_seg, depth, h, hkv, hd, page, maxp, base,

@@ -3,6 +3,8 @@ package on the ``tests/test_kernels.py`` and ``tests/test_spec_decode.py``
 sweeps: the Pallas kernels in interpret mode (``repro.kernels.ops``) and
 the ``ref.py`` oracles, fp32 at 2e-5 and bf16 at 2e-2.  The port's
 dispatch sends CPU tensors to these plain versions."""
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -353,3 +355,91 @@ def test_c_signatures_match_the_sources():
             kind = "".join(words[:-1]) + ("*" if "*" in arg else "")
             got.append(kinds["void*" if "*" in kind else kind])
         assert got == argtypes, name
+
+
+# --------------------------------------------------------------------------
+# The precision argument of the tensor-core prefill kernel (fp32 as 3xTF32),
+# emulated in plain PyTorch: TF32 keeps 10 of fp32's 23 mantissa bits.
+# --------------------------------------------------------------------------
+
+def tf32_rna(x):
+    """fp32 -> TF32, to nearest with ties away from zero (cvt.rna.tf32.f32;
+    the kernel's two-instruction form), as fp32 values."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_trunc(x):
+    """fp32 -> TF32 by dropping the low 13 bits (what the tensor core reads
+    of an unrounded operand)."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def tc_matmul(a, b, terms, step=8):
+    """a @ b as mma.sync computes it: fp32 accumulators, one k-step of
+    ``step`` at a time, each step's products of ``terms`` ((a part, b
+    part) pairs of TF32 values) exact in fp64, added in order."""
+    acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
+    for k0 in range(0, a.shape[1], step):
+        for ta, tb in terms:
+            part = ta(a[:, k0:k0 + step]).double() @ tb(b[k0:k0 + step]).double()
+            acc = (acc.double() + part).float()
+    return acc
+
+
+def split_terms(small):
+    """The 3xTF32 terms in the kernel's order: small*big, big*small,
+    big*big; ``small`` rounds the residual x - big to TF32."""
+    big = tf32_rna
+    sm = lambda x: small(x - big(x))
+    return [(sm, big), (big, sm), (big, big)]
+
+
+def emulated_attention(q, k, v, q_pos, terms):
+    """One head's causal attention with both products on emulated tensor
+    cores and the softmax in fp32, as the kernel computes it."""
+    s = tc_matmul(q, k.T, terms) / math.sqrt(q.shape[1])
+    s = s.masked_fill(torch.arange(k.shape[0])[None] > q_pos[:, None],
+                      -1e30)
+    return tc_matmul(torch.softmax(s, dim=-1), v, terms)
+
+
+def attention_head(hd, rows=16, keys=512, seed=0):
+    """The last ``rows`` queries of a fresh ``keys``-token prompt (they see
+    the most keys), standard-normal inputs as in ``chip_smoke.py``, and the
+    fp64 result."""
+    rng = np.random.default_rng(seed)
+    q = torch.as_tensor(rng.standard_normal((rows, hd)), dtype=torch.float32)
+    k = torch.as_tensor(rng.standard_normal((keys, hd)), dtype=torch.float32)
+    v = torch.as_tensor(rng.standard_normal((keys, hd)), dtype=torch.float32)
+    q_pos = torch.arange(keys - rows, keys)
+    s = (q.double() @ k.double().T) / math.sqrt(hd)
+    s = s.masked_fill(torch.arange(keys)[None] > q_pos[:, None], -math.inf)
+    return q, k, v, q_pos, torch.softmax(s, dim=-1) @ v.double()
+
+
+@pytest.mark.parametrize("small", [tf32_trunc, tf32_rna],
+                         ids=["small_read_by_the_mma", "small_rounded"])
+@pytest.mark.parametrize("hd", [64, 128], ids=["qwen1.5_hd64",
+                                              "qwen2_hd128"])
+def test_3xtf32_attention_holds_the_fp32_tolerance(hd, small):
+    """fp32 attention with 3xTF32 products stays within the port's fp32
+    tolerance (2e-5) of the fp64 result, with the residual either rounded
+    or cut by the tensor core."""
+    q, k, v, q_pos, want = attention_head(hd)
+    got = emulated_attention(q, k, v, q_pos, split_terms(small))
+    torch.testing.assert_close(got, want.float(), atol=2e-5, rtol=2e-5)
+    assert float((got.double() - want).abs().max()) < 2e-6
+
+
+@pytest.mark.parametrize("hd", [64, 128], ids=["qwen1.5_hd64",
+                                              "qwen2_hd128"])
+def test_1xtf32_attention_misses_the_fp32_tolerance(hd):
+    """One TF32 product per product (what ``allow_tf32`` would give) is
+    ~1e-4 off on these 16 rows: it cannot hold 2e-5, so the kernel never
+    uses it for fp32."""
+    q, k, v, q_pos, want = attention_head(hd)
+    got = emulated_attention(q, k, v, q_pos, [(tf32_rna, tf32_rna)])
+    err = float((got.double() - want).abs().max())
+    assert err > 5e-5
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(got, want.float(), atol=2e-5, rtol=2e-5)
