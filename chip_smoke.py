@@ -11,7 +11,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
   2. build   — every ``src/repro_torch/csrc/*.cu`` compiled with nvcc for
                sm_90a (``-Xptxas -v``): registers, shared memory and spills
                of each kernel; no instance of the tensor-core prefill body
-               (``packed_prefill.cu``) may spill.
+               (``packed_prefill.cu``) or of the cluster-split decode body
+               (``paged_attention.cu``) may spill.
   3. kernels — each CUDA kernel held against its plain PyTorch version at
                the serve phase's shapes (Qwen1.5-0.5B: H = Hkv = 16,
                hd 64, page 16) and, for the attention kernels, at
@@ -32,6 +33,10 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                and timed beside SDPA in bf16 at the same shapes (printed,
                not in the JSON line); their bounds take the tensor cores'
                rate (fp32 as 3xTF32: 165 TFLOP/s; bf16: 989 TFLOP/s).
+               The decode and verify kernels' bf16 instances are held at
+               2e-2 and timed beside their plain versions the same way,
+               and the decode instance's cluster size, shared memory per
+               block and residency are printed for each width.
   4. serve   — the port's entry point ``repro_torch.launch.serve`` at the
                full width of Qwen1.5-0.5B (24 layers, fp32, random weights
                from seed 0): two waves of multi-priority requests with
@@ -155,12 +160,13 @@ def decode_case(rng, b, h, hkv, hd, page, maxp, lens, dev):
 
 def decode_bound(q, kp, bt, lens) -> tuple[float, str]:
     """Least time for the work these inputs need: live K/V rows, q, the
-    tables and lengths read once, the output written once; 4 flops per
-    (query head, live position, dim) for QK^T and PV."""
+    tables and lengths read once, the output written once (K/V, q and the
+    output at their element size); 4 flops per (query head, live
+    position, dim) for QK^T and PV."""
     b, h, hd = q.shape
     hkv = kp.shape[2]
     live = int(lens.sum())
-    nbytes = (2 * live * hkv * hd + 2 * b * h * hd) * 4 \
+    nbytes = (2 * live * hkv * hd + 2 * b * h * hd) * q.element_size() \
         + bt.numel() * 4 + lens.numel() * 4
     flops = 4 * live * h * hd
     return bound(nbytes, flops)
@@ -279,6 +285,37 @@ def bf16_prefill(name, kernel, plain, args, ctx, rows=None) -> dict:
         shape=f"q {tuple(q.shape)} kv {tuple(kc.shape)} bf16")
 
 
+def bf16_paged(name, kernel, plain, args, bound_fn) -> dict:
+    """The bf16 instance of a paged kernel (decode, verify) at an fp32
+    row's shapes: held at 2e-2 against its plain version and timed beside
+    it (printed; the JSON line keeps the fp32 rows)."""
+    err = compare(f"{name} (bf16)", kernel(*args), plain(*args))
+    k, p = turns(lambda: kernel(*args), lambda: plain(*args))
+    b = bound_fn(*args)
+    return dict(
+        max_abs_err=err, ms=float(np.mean(k)),
+        warm_l2_ms=time_ms(lambda: kernel(*args), cold_l2=False),
+        plain_ms=float(np.mean(p)), library_ms=None, bound_ms=b[0],
+        bound_by=b[1], shape=f"q {tuple(args[0].shape)} pages "
+        f"{tuple(args[1].shape)} bf16")
+
+
+def print_launch_shape(q, kp) -> None:
+    """The decode kernel's cluster size, shared memory per block and
+    residency for these widths, fp32 and bf16."""
+    from repro_torch.kernels.paged_attention import launch_shape
+    g, hd = q.shape[1] // kp.shape[2], q.shape[2]
+    for dt in (torch.float32, torch.bfloat16):
+        ls = launch_shape(dt, hd, g, q.device)
+        print(f"  paged_attention.cu instance ({str(dt)[6:]}, hd {hd}, G "
+              f"{g}): cluster {ls['cluster']} blocks x {ls['warps']} warps, "
+              f"{ls['stages']} cp.async stages of "
+              f"{ls['positions_per_stage']} positions per warp, "
+              f"{ls['smem_bytes']} B shared memory per block, "
+              f"{ls['blocks_per_sm']} blocks per SM, {ls['clusters']} "
+              f"clusters resident", flush=True)
+
+
 def kernels_phase(dev) -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -310,6 +347,7 @@ def kernels_phase(dev) -> dict:
         p_args = prefill_case(rng, *c["prefill"], dev)
         q, kc, vc, ctx = p_args
         rows = real_rows(ctx, q.shape[1], kc.shape[1])
+        print_launch_shape(d_args[0], d_args[1])
         d_err = compare("paged_decode_attention",
                         paged_decode_attention(*d_args),
                         ref.paged_decode_attention_ref(*d_args))
@@ -357,6 +395,11 @@ def kernels_phase(dev) -> dict:
             ref.packed_prefill_attention_ref,
             [a.bfloat16() if a.is_floating_point() else a for a in p_args],
             ctx, rows)
+        results[label]["paged_decode_attention (bf16)"] = bf16_paged(
+            "paged_decode_attention", paged_decode_attention,
+            ref.paged_decode_attention_ref,
+            [a.bfloat16() if a.is_floating_point() else a for a in d_args],
+            lambda q, kp, vp, bt, ln: decode_bound(q, kp, bt, ln))
         if label == "qwen1.5-0.5b":
             results[label].update(slice3_kernels(rng, dev, p_args))
         for name, r in results[label].items():
@@ -403,7 +446,7 @@ def verify_bound(q, kp, bt, lens, seg) -> tuple[float, str]:
     for s_, n in zip(seg.tolist(), lens.tolist()):
         longest[s_] = max(longest.get(s_, 0), n)
     live = sum(longest.values())
-    nbytes = (2 * live * hkv * hd + 2 * r * h * hd) * 4 \
+    nbytes = (2 * live * hkv * hd + 2 * r * h * hd) * q.element_size() \
         + bt.numel() * 4 + 2 * lens.numel() * 4
     flops = 4 * int(lens.sum()) * h * hd
     return bound(nbytes, flops)
@@ -446,9 +489,6 @@ def slice3_kernels(rng, dev, p_args) -> dict:
                     packed_verify_attention(*v_args, seg),
                     ref.packed_verify_attention_ref(*v_args, seg))
     v_bf = [a.bfloat16() if a.is_floating_point() else a for a in v_args]
-    compare("packed_verify_attention (bf16)",
-            packed_verify_attention(*v_bf, seg),
-            ref.packed_verify_attention_ref(*v_bf, seg))
     for label, args in (("fp32", v_args), ("bf16", v_bf)):
         q, kp, vp, bt, ln = args
         bitwise(f"packed_verify_attention rows = paged_decode_attention on "
@@ -494,6 +534,11 @@ def slice3_kernels(rng, dev, p_args) -> dict:
             shape=f"q {tuple(q.shape)} kv {tuple(kc.shape)} cache_lens "
                   f"{cl.tolist()}"),
         "chunked_prefill_attention (bf16)": c_bf16,
+        "packed_verify_attention (bf16)": bf16_paged(
+            "packed_verify_attention",
+            lambda *a: packed_verify_attention(*a, seg),
+            lambda *a: ref.packed_verify_attention_ref(*a, seg), v_bf,
+            lambda q, kp, vp, bt, ln: verify_bound(q, kp, bt, ln, seg)),
         # library: none; no PyTorch call reads a paged pool through a
         # block table (as for paged_decode_attention)
         "packed_verify_attention": dict(
@@ -1204,16 +1249,17 @@ def main() -> None:
         if line.startswith("==") or "Compiling entry" in line \
                 or "spill" in line or "Used" in line:
             print("  " + line.strip(), flush=True)
-    # the tensor-core prefill body keeps its fragments in registers
-    prefill_log = log.split("== packed_prefill.cu", 1)[1].split("\n==")[0]
-    spills = [m.group(0) for m in re.finditer(
-        r"(\d+) bytes spill stores, (\d+) bytes spill loads", prefill_log)
-        if int(m.group(1)) or int(m.group(2))]
-    if spills:
-        fail(f"packed_prefill.cu spills: {spills}")
-    print(f"  packed_prefill.cu: "
-          f"{prefill_log.count('Compiling entry')} instances, no spill",
-          flush=True)
+    # the attention bodies keep their fragments and accumulators in
+    # registers: no instance may spill
+    for src in ("packed_prefill.cu", "paged_attention.cu"):
+        src_log = log.split(f"== {src}", 1)[1].split("\n==")[0]
+        spills = [m.group(0) for m in re.finditer(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads", src_log)
+            if int(m.group(1)) or int(m.group(2))]
+        if spills:
+            fail(f"{src} spills: {spills}")
+        print(f"  {src}: {src_log.count('Compiling entry')} instances, "
+              f"no spill", flush=True)
     print(f"  built {build.BUILD_DIR / build.LIB_NAME} in "
           f"{time.monotonic() - t0:.1f} s", flush=True)
     build.library()

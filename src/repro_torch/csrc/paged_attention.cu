@@ -14,45 +14,131 @@
 //    request share its table) with its own length l_kv + j + 1.  As in the
 //    TPU kernel this is the only change: row_seg is read where the table
 //    row is chosen, and nothing else in the body differs, so each verify
-//    row is bitwise the decode row run on tables[row_seg[b]].  The
-//    choice is a template flag, so the decode instances compile as they
-//    did without it.
+//    row is bitwise the decode row run on tables[row_seg[b]].  The choice
+//    is a template flag, so the decode instances carry no test for it.
 //
 // What bounds it on the card: memory bandwidth.  Each (request, kv head)
 // reads len * hd * 2 K/V values once and does 4 * G * hd flops per cached
-// position, about G/2 flops per byte at fp32, far below the H100's ~20
-// flop/byte fp32 ridge.  The bound is the live K/V bytes over 3.35 TB/s.
+// position: G / 2 flops per fp32 byte, at most 4 at G = 8, against the
+// CUDA cores' fp32 ridge of ~20 flops per byte (67 TFLOP/s over 3.35
+// TB/s).  So the kernel stays on the CUDA cores: mma.sync or wgmma would
+// speed up arithmetic that is not the limit, and the design is about
+// keeping enough bytes in flight (~2 MB over the card, ~15 KiB per SM, to
+// cover ~0.6 us of memory latency at 3.35 TB/s).
 //
 // What the design does about it:
-//  * One thread block per (b, kv_head).  The block reads the block-table
-//    entries itself (this replaces the TPU's scalar prefetch) and walks only
-//    the pages i < ceil(lengths[b] / page).  On the TPU the pages past the
-//    length are a bitwise no-op (s = -1e30, alpha = 1, p = 0), so stopping
-//    at the length computes the same function and moves no dead bytes.
-//  * K and V are read once per kv group: the G query heads of the group are
-//    held in registers by every lane, so one coalesced row load feeds G dot
-//    products.  Lanes own the head dims d = lane + 32 t, so a row load is a
-//    run of 128-byte transactions.
-//  * Four warps split the pages round-robin (warp w takes pages w, w+4, ..)
-//    so a short request still has four loads in flight, and their partial
-//    softmax states are merged at the end in the fixed order w = 0..3.
-//    The order of every sum depends only on (length, page, hd, G), never on
-//    B or on the other rows of the batch: the packed verify kernel can reuse
-//    this body and get the decode row's bits.
-//  * Math follows the TPU kernel: NEG_INF = -1e30, fp32 online softmax,
-//    p = 0 on masked positions, output acc / max(l, 1e-30).
+//  * The pages of one (row, kv head) are split over a thread-block
+//    cluster of CLUSTER = 2 blocks (__cluster_dims__) and over the WARPS =
+//    4 warps of each block: page i belongs to block rank i % CLUSTER and,
+//    in that block, to warp (i / CLUSTER) % WARPS.  The rule depends only
+//    on the page index; a row walks only its n_pages = min(ceil(len /
+//    page), maxp) live pages, so a long row's chain is spread over SPLITS
+//    = 8 warps on two SMs instead of four warps of one block.  (Clusters
+//    of 4 gave the longest single row a shorter chain, but twice the
+//    blocks, and were slower on the batched shapes: PERF.md, measured
+//    with tools/paged_decode_variants.py.)
+//  * Each warp stages its pages in shared memory with 16-byte cp.async, in
+//    stages of TP positions (a whole page, or a TP-position slice of a
+//    larger one; TP holds ~STAGE_BYTES = 4 KiB of K and V rows, 8 to 32
+//    positions: 8 at fp32 hd 64 and hd 128, 16 at bf16 hd 64), in a ring
+//    of STAGES = 2: the next stage's copies are issued before the current
+//    one is computed.  Rows at or past the length are zero-filled, not
+//    read.  The table entries of a warp's first 32 pages are read once, a
+//    lane each, beside the length.  At ~35 KiB of shared memory per block
+//    (fp32 hd 64) six blocks fit an SM, so 24 warps keep up to ~100 KiB of
+//    K/V loads in flight per SM.
+//  * Scores come from shared memory with no warp-wide reduction per
+//    position: in a stage, lane l owns position l % TP and one of LP = 32
+//    / TP slices of the head dims, for all G heads of the group (q sits in
+//    shared memory as fp32); the LP slices of a position are added by
+//    log2(LP) shuffles.  The softmax then takes one max over the stage's
+//    positions per head; each lane keeps a partial row sum for its
+//    position slot, added over the positions once at the end.
+//  * P V is spread over the warp: lane l owns the 16-byte column l % (hd /
+//    VEC) of V (VEC = 4 fp32 or 8 bf16 values) for a class of heads and a
+//    class of positions, so a lane holds at most 32 accumulators (G 8 x hd
+//    128) instead of all G x hd; the position classes are added by
+//    shuffles at the end.  P goes from the score lanes to the P V lanes
+//    through a per-warp shared-memory row.
+//  * Layout of a stage: K rows [0, TP) then V rows [0, TP), each hd
+//    elements plus a 16-byte pad.  Score lanes read 16 bytes of eight
+//    different rows at one column per quarter-warp: with a row stride of
+//    (hd / VEC + 1) 16-byte units, odd, they fall in eight distinct bank
+//    groups.  P V lanes read one row's consecutive 16-byte columns.
+//  * Merge, in a fixed order and without atomics: each warp's partial
+//    (m, l, acc) goes to shared memory; the block merges its warps in the
+//    order w = 0..WARPS-1; after cluster.sync(), rank 0 reads the ranks'
+//    block states through distributed shared memory (map_shared_rank) in
+//    the order r = 0..CLUSTER-1 and writes the output; a second
+//    cluster.sync() keeps the states alive until it has read them.  A
+//    split with no page would carry (NEG_INF, 0, 0) and add exactly 0, so
+//    the merges leave it out: a rank with no page (every rank but 0 of a
+//    one-page row) returns at once, and a row whose pages all sit in rank
+//    0 skips the cluster barriers.  All of the cluster's blocks derive that
+//    choice from the same length.  No workspace, no second launch.
+//  * The order of every sum depends only on (length, page, hd, G, the
+//    type), never on B, on maxp beyond the clamp, or on the other rows, so
+//    the verify entry gets the decode row's bits, and the engine's
+//    spec-on = spec-off and exact-stream contracts hold.
+//  * Math follows the TPU kernel: scores scaled first, then masked to
+//    NEG_INF = -1e30 with p = 0, so a masked score stays exactly NEG_INF
+//    and m stays NEG_INF until a real key; fp32 online softmax (in log2
+//    units: s * scale * log2(e), exp2); output acc / max(l, 1e-30), so a
+//    length-0 row writes 0.
 //
 // The kernel launches on the caller's stream, allocates nothing and the C
-// entry point returns cudaGetLastError() of the launch.
+// entry points return cudaGetLastError() of the launch.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <atomic>
+#include <cstdint>
+#include <initializer_list>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int WARPS = 4;
+constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int CLUSTER = 2;  // blocks per (row, kv head)
+constexpr int WARPS = 4;    // warps per block
+constexpr int THREADS = WARPS * 32;
+constexpr int STAGES = 2;   // cp.async ring depth per warp
+constexpr int STAGE_BYTES = 4096;  // K and V rows a stage aims at
+constexpr int SPLITS = CLUSTER * WARPS;
+
+template <typename T_, int HD_, int GM_>
+struct Cfg {
+  using T = T_;
+  static constexpr int HD = HD_;  // head dim
+  static constexpr int GM = GM_;  // largest G = H / Hkv the instance takes
+  static constexpr int VEC = 16 / sizeof(T);  // values per 16 bytes
+  static constexpr int DC = HD / VEC;         // 16-byte columns per row
+  // positions per stage: ~STAGE_BYTES of K and V rows, 8..32
+  static constexpr int TP_RAW = STAGE_BYTES / (2 * HD * (int)sizeof(T));
+  static constexpr int TP = TP_RAW < 8 ? 8 : (TP_RAW > 32 ? 32 : TP_RAW);
+  static constexpr int RS = HD + VEC;  // stage row stride (elements)
+  static constexpr int LP = 32 / TP;   // score lanes per position
+  static constexpr int QC = DC / LP;   // 16-byte columns per score lane
+  static constexpr int LR = 32 / DC;   // P V lanes per column
+  static constexpr int HS = GM < LR ? GM : LR;  // P V head classes
+  static constexpr int PS = LR / HS;            // P V position classes
+  static constexpr int GL = GM / HS;            // heads per P V lane
+  static constexpr int STAGE = 2 * TP * RS;     // elements: K, then V rows
+  static constexpr int WS = 2 * GM + GM * HD;   // floats: m, l, acc
+  static constexpr int Q_BYTES = GM * HD * 4;
+  static constexpr int P_BYTES = (WARPS * (TP + 1) * GM * 4 + 15) / 16 * 16;
+  static constexpr int RING_BYTES = WARPS * STAGES * STAGE * sizeof(T);
+  static constexpr int SMEM = Q_BYTES + P_BYTES + RING_BYTES;
+  static_assert(HD % VEC == 0 && 32 % DC == 0 && DC % LP == 0, "layout");
+  static_assert((TP * DC) % 32 == 0 && PS <= TP, "layout");
+  // the warps' and the block's merge states reuse the ring
+  static_assert((WARPS + 1) * WS * 4 <= RING_BYTES, "merge room");
+};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -63,260 +149,484 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
+// 16 bytes of shared memory as fp32 values
+__device__ __forceinline__ void load16(const float* p, float (&x)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  x[0] = v.x;
+  x[1] = v.y;
+  x[2] = v.z;
+  x[3] = v.w;
+}
+__device__ __forceinline__ void load16(const __nv_bfloat16* p,
+                                       float (&x)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
-  return x;
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
 }
 
-__device__ __forceinline__ float warp_max(float x) {
+// N consecutive fp32 values of shared memory, 16 or 8 bytes at a time
+template <int N>
+__device__ __forceinline__ void load_f32(const float* p, float (&x)[N]) {
+  if constexpr (N % 4 == 0) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(FULL, x, o));
-  return x;
+    for (int i = 0; i < N / 4; ++i) {
+      const float4 v = reinterpret_cast<const float4*>(p)[i];
+      x[4 * i] = v.x;
+      x[4 * i + 1] = v.y;
+      x[4 * i + 2] = v.z;
+      x[4 * i + 3] = v.w;
+    }
+  } else if constexpr (N == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    x[0] = v.x;
+    x[1] = v.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] = p[i];
+  }
 }
 
-// D: head dims per lane (ceil(hd / 32)); GM: largest G this instance takes;
-// ROW_SEG: verify (row b reads table row row_seg[b]) or decode (row b).
-template <typename T, int D, int GM, bool ROW_SEG>
-__global__ void __launch_bounds__(WARPS * 32)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                    const T* __restrict__ v_pages,
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, or 16 zero bytes when !full
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Element e of the merge of the states st[0..n) (m[GM], l[GM],
+// acc[GM][HD]; n <= N) in the order 0..n-1: e < GM * HD is acc element e,
+// else l of head e - GM * HD.  Returns the merged value; *m_out gets the
+// merged max of its head.  Leaving out a split with no page changes no
+// bit: its (NEG_INF, 0, 0) adds exp2(NEG_INF - m) * 0 = 0.
+template <int N, int GM, int HD>
+__device__ __forceinline__ float merge(const float* const* st, int n, int e,
+                                       float* m_out) {
+  const bool is_acc = e < GM * HD;
+  const int g = is_acc ? e / HD : e - GM * HD;
+  float mx = NEG_INF;
+#pragma unroll
+  for (int k = 0; k < N; ++k)
+    if (k < n) mx = fmaxf(mx, st[k][g]);
+  float sum = 0.f;
+#pragma unroll
+  for (int k = 0; k < N; ++k)
+    if (k < n)
+      sum += exp2f(st[k][g] - mx) * (is_acc ? st[k][2 * GM + e]
+                                            : st[k][GM + g]);
+  *m_out = mx;
+  return sum;
+}
+
+// One cluster per (row b, kv head); see the note at the top.
+template <class C, bool ROW_SEG>
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS, 1)
+paged_decode_kernel(const typename C::T* __restrict__ q,
+                    const typename C::T* __restrict__ k_pages,
+                    const typename C::T* __restrict__ v_pages,
                     const int* __restrict__ tables,
                     const int* __restrict__ lengths,
-                    const int* __restrict__ row_seg, T* __restrict__ out,
-                    int H, int Hkv, int hd, int page, int maxp, float scale) {
-  const int b = blockIdx.x / Hkv;
-  const int kvh = blockIdx.x % Hkv;
+                    const int* __restrict__ row_seg,
+                    typename C::T* __restrict__ out, int H, int Hkv, int page,
+                    int maxp, float scale) {
+  using T = typename C::T;
+  constexpr int HD = C::HD, GM = C::GM, VEC = C::VEC, DC = C::DC;
+  constexpr int TP = C::TP, RS = C::RS, LP = C::LP, HS = C::HS;
+  constexpr int PS = C::PS, GL = C::GL, WS = C::WS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* q_s = reinterpret_cast<float*>(smem);            // [GM][HD]
+  float* p_s = q_s + GM * HD;  // [WARPS][TP + 1][GM]: P rows, then alpha
+  T* ring = reinterpret_cast<T*>(smem + C::Q_BYTES + C::P_BYTES);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int unit = blockIdx.x / CLUSTER;
+  const int b = unit / Hkv;
+  const int kvh = unit % Hkv;
   const int G = H / Hkv;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int len = lengths[b];
-  const int n_pages = min((len + page - 1) / page, maxp);
+  const int n_pages = len > 0 ? min((len + page - 1) / page, maxp) : 0;
+  // ranks with a page: page i is rank i % CLUSTER's.  A rank past them
+  // (not rank 0, which writes the output) only keeps the cluster's
+  // barriers, which exist only when two or more ranks have pages.
+  const int n_ranks = min(CLUSTER, n_pages);
+  if (rank > 0 && rank >= n_ranks) {
+    if (n_ranks > 1) {
+      cluster.sync();
+      cluster.sync();
+    }
+    return;
+  }
   // decode: row b's own table row; verify: its request's (row_seg[b])
-  const int trow = ROW_SEG ? row_seg[b] : b;
+  const int* trow = tables + (size_t)(ROW_SEG ? row_seg[b] : b) * maxp;
+  const size_t pos_stride = (size_t)Hkv * HD;
+  const int per_page = (page + TP - 1) / TP;  // stages per page
+  const int split = warp * CLUSTER + rank;  // pages split + SPLITS * k
+  T* my_ring = ring + warp * STAGES * C::STAGE;
+  float* my_p = p_s + warp * (TP + 1) * GM;
+  float* my_alpha = my_p + TP * GM;
+  // lane k holds the table entry of this warp's k-th page (split + SPLITS *
+  // k): one load for the warp's first 32 pages instead of one per stage
+  const int my_phys =
+      split + SPLITS * lane < maxp ? trow[split + SPLITS * lane] : 0;
 
-  float qr[GM][D], acc[GM][D], m[GM], l[GM];
+  // Stage t of this warp: page i = split + SPLITS * (t / per_page),
+  // positions j0 = TP * (t % per_page) .. of it.  Stages exist up to the
+  // first one at or past the length (pages only grow with t).
+  auto stage_of = [&](int t, int& i, int& j0) {
+    const int kk = t / per_page;
+    i = split + SPLITS * kk;
+    j0 = (t - kk * per_page) * TP;
+    return i < n_pages && i * page + j0 < len;
+  };
+  auto issue = [&](int t) {
+    int i, j0;
+    if (!stage_of(t, i, j0)) return;
+    const int pos0 = i * page + j0;
+    const int nrow = min(TP, page - j0);
+    const int kk = t / per_page;
+    const int phys = kk < 32 ? __shfl_sync(FULL, my_phys, kk) : trow[i];
+    const size_t base =
+        ((size_t)phys * page + j0) * pos_stride + (size_t)kvh * HD;
+    T* st = my_ring + (t % STAGES) * C::STAGE;
+#pragma unroll
+    for (int n = 0; n < TP * DC / 32; ++n) {
+      const int e = lane + 32 * n;
+      const int j = e / DC, c = e % DC;
+      if (j < nrow) {
+        const bool live = pos0 + j < len;
+        const size_t off = base + (size_t)j * pos_stride + c * VEC;
+        cp_async16(st + j * RS + c * VEC, k_pages + off, live);
+        cp_async16(st + (TP + j) * RS + c * VEC, v_pages + off, live);
+      }
+    }
+  };
+
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) {
+    issue(t);
+    cp_async_commit();
+  }
+  // the group's queries, fp32, zero for heads >= G
+  for (int e = threadIdx.x; e < GM * HD; e += THREADS) {
+    const int g = e / HD;
+    q_s[e] = g < G ? to_f32(q[((size_t)b * H + kvh * G + g) * HD + e % HD])
+                   : 0.f;
+  }
+  __syncthreads();
+
+  const float scale2 = scale * LOG2E;
+  // score lanes: position qp of a stage, dim slice qsl
+  const int qp = lane % TP, qsl = lane / TP;
+  // P V lanes: 16-byte column vc, head class hc, position class pc
+  const int vc = lane % DC, hc = (lane / DC) % HS, pc = (lane / DC) / HS;
+
+  float m[GM], l[GM], acc[GL][VEC];
 #pragma unroll
   for (int g = 0; g < GM; ++g) {
     m[g] = NEG_INF;
     l[g] = 0.f;
-#pragma unroll
-    for (int t = 0; t < D; ++t) {
-      const int d = lane + 32 * t;
-      qr[g][t] = (g < G && d < hd)
-                     ? to_f32(q[((size_t)b * H + kvh * G + g) * hd + d])
-                     : 0.f;
-      acc[g][t] = 0.f;
-    }
   }
+#pragma unroll
+  for (int i = 0; i < GL; ++i)
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) acc[i][v] = 0.f;
 
-  const size_t pos_stride = (size_t)Hkv * hd;
-  for (int i = warp; i < n_pages; i += WARPS) {
-    const int phys = tables[(size_t)trow * maxp + i];
-    const size_t base = ((size_t)phys * page * Hkv + kvh) * hd;
-    const T* kp = k_pages + base;
-    const T* vp = v_pages + base;
-    const int pos0 = i * page;
+  for (int t = 0;; ++t) {
+    int i, j0;
+    if (!stage_of(t, i, j0)) break;
+    issue(t + STAGES - 1);
+    cp_async_commit();
+    cp_async_wait<STAGES - 1>();
+    __syncwarp();
+    const T* ks = my_ring + (t % STAGES) * C::STAGE;
+    const T* vs = ks + TP * RS;
+    const int pos0 = i * page + j0;
+    const int nrow = min(TP, page - j0);
 
-    // scores: lane j ends up holding position j's score for every head
+    // scores of position qp over this lane's dim slice, all heads
     float s[GM];
 #pragma unroll
-    for (int g = 0; g < GM; ++g) s[g] = NEG_INF;
-#pragma unroll 4
-    for (int j = 0; j < page; ++j) {
-      float kd[D];
+    for (int g = 0; g < GM; ++g) s[g] = 0.f;
 #pragma unroll
-      for (int t = 0; t < D; ++t) {
-        const int d = lane + 32 * t;
-        kd[t] = d < hd ? to_f32(kp[j * pos_stride + d]) : 0.f;
-      }
+    for (int u = 0; u < C::QC; ++u) {
+      const int c = qsl + LP * u;
+      float kv[VEC];
+      load16(ks + qp * RS + c * VEC, kv);
 #pragma unroll
       for (int g = 0; g < GM; ++g) {
-        if (g < G) {
-          float part = 0.f;
 #pragma unroll
-          for (int t = 0; t < D; ++t) part = fmaf(qr[g][t], kd[t], part);
-          part = warp_sum(part);
-          if (lane == j) s[g] = part * scale;
+        for (int h = 0; h < VEC / 4; ++h) {
+          const float4 q4 =
+              *reinterpret_cast<const float4*>(q_s + g * HD + c * VEC + 4 * h);
+          s[g] = fmaf(q4.x, kv[4 * h], s[g]);
+          s[g] = fmaf(q4.y, kv[4 * h + 1], s[g]);
+          s[g] = fmaf(q4.z, kv[4 * h + 2], s[g]);
+          s[g] = fmaf(q4.w, kv[4 * h + 3], s[g]);
         }
       }
     }
+    // add the LP slices of a position (lanes qp + TP * slice)
+#pragma unroll
+    for (int o = TP; o < 32; o <<= 1)
+#pragma unroll
+      for (int g = 0; g < GM; ++g) s[g] += __shfl_xor_sync(FULL, s[g], o);
 
-    // online softmax update over this page (lane j = position pos0 + j)
-    const bool valid = lane < page && pos0 + lane < len;
+    // online softmax over the stage: scale, then mask
+    const bool valid = qp < nrow && pos0 + qp < len;
 #pragma unroll
     for (int g = 0; g < GM; ++g) {
-      if (g < G) {
-        const float sg = valid ? s[g] : NEG_INF;
-        const float m_new = fmaxf(m[g], warp_max(sg));
-        const float alpha = expf(m[g] - m_new);
-        const float p = valid ? expf(sg - m_new) : 0.f;
-        l[g] = l[g] * alpha + warp_sum(p);
+      const float sg = valid ? s[g] * scale2 : NEG_INF;
+      float mx = sg;
 #pragma unroll
-        for (int t = 0; t < D; ++t) acc[g][t] *= alpha;
-        m[g] = m_new;
-        s[g] = p;
+      for (int o = 1; o < TP; o <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
+      const float m_new = fmaxf(m[g], mx);
+      const float alpha = exp2f(m[g] - m_new);
+      const float p = valid ? exp2f(sg - m_new) : 0.f;
+      l[g] = l[g] * alpha + p;
+      m[g] = m_new;
+      s[g] = p;
+      if (lane == 0) my_alpha[(g % HS) * GL + g / HS] = alpha;
+    }
+    // P to the P V lanes: row qp, heads of class hc contiguous
+    if (qsl == 0) {
+#pragma unroll
+      for (int g = 0; g < GM; ++g) my_p[qp * GM + (g % HS) * GL + g / HS] = s[g];
+    }
+    __syncwarp();
+
+    // acc = acc * alpha + P V for heads hc + HS * i, positions pc + PS * n
+    {
+      float a[GL];
+      load_f32(my_alpha + hc * GL, a);
+#pragma unroll
+      for (int i = 0; i < GL; ++i)
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) acc[i][v] *= a[i];
+    }
+#pragma unroll
+    for (int n = 0; n < TP / PS; ++n) {
+      const int j = pc + PS * n;
+      if (j < nrow) {
+        float vv[VEC];
+        load16(vs + j * RS + vc * VEC, vv);
+        float pj[GL];
+        load_f32(my_p + j * GM + hc * GL, pj);
+#pragma unroll
+        for (int i = 0; i < GL; ++i)
+#pragma unroll
+          for (int v = 0; v < VEC; ++v)
+            acc[i][v] = fmaf(pj[i], vv[v], acc[i][v]);
       }
     }
+    __syncwarp();
+  }
+  cp_async_wait<0>();
 
-    // acc += p @ V, p broadcast from lane j
-#pragma unroll 4
-    for (int j = 0; j < page; ++j) {
-      float vd[D];
+  // the warp's state: l over its position slots, acc over position classes
 #pragma unroll
-      for (int t = 0; t < D; ++t) {
-        const int d = lane + 32 * t;
-        vd[t] = d < hd ? to_f32(vp[j * pos_stride + d]) : 0.f;
-      }
+  for (int g = 0; g < GM; ++g)
+#pragma unroll
+    for (int o = 1; o < TP; o <<= 1) l[g] += __shfl_xor_sync(FULL, l[g], o);
+#pragma unroll
+  for (int o = DC * HS; o < 32; o <<= 1)
+#pragma unroll
+    for (int i = 0; i < GL; ++i)
+#pragma unroll
+      for (int v = 0; v < VEC; ++v)
+        acc[i][v] += __shfl_xor_sync(FULL, acc[i][v], o);
+  __syncthreads();  // every warp is done with the ring
+  // warps w < n_warps have pages (split = w * CLUSTER + rank < n_pages)
+  const int n_warps = min(WARPS, (n_pages - rank + CLUSTER - 1) / CLUSTER);
+  float* states = reinterpret_cast<float*>(ring);  // [WARPS + 1][WS]
+  float* ws = states + warp * WS;
+  if (warp < n_warps) {
+    if (lane == 0) {
 #pragma unroll
       for (int g = 0; g < GM; ++g) {
-        if (g < G) {
-          const float pj = __shfl_sync(FULL, s[g], j);
-#pragma unroll
-          for (int t = 0; t < D; ++t) acc[g][t] = fmaf(pj, vd[t], acc[g][t]);
-        }
+        ws[g] = m[g];
+        ws[GM + g] = l[g];
       }
     }
-  }
-
-  // merge the four warps' partial states in a fixed order
-  __shared__ float sm_m[WARPS][GM];
-  __shared__ float sm_l[WARPS][GM];
-  __shared__ float sm_acc[WARPS][GM][D * 32];
+    if (pc == 0) {
 #pragma unroll
-  for (int g = 0; g < GM; ++g) {
-    if (lane == 0) {
-      sm_m[warp][g] = m[g];
-      sm_l[warp][g] = l[g];
+      for (int i = 0; i < GL; ++i)
+#pragma unroll
+        for (int v = 0; v < VEC; ++v)
+          ws[2 * GM + (hc + HS * i) * HD + vc * VEC + v] = acc[i][v];
     }
-#pragma unroll
-    for (int t = 0; t < D; ++t) sm_acc[warp][g][lane + 32 * t] = acc[g][t];
   }
   __syncthreads();
-  for (int g = warp; g < G; g += WARPS) {
-    float mx = NEG_INF;
+
+  // the block's state: its warps merged in the order 0..n_warps-1
+  float* bs = states + WARPS * WS;
+  if (n_warps > 0) {
+    const float* st[WARPS];
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, sm_m[w][g]);
-    float c[WARPS];
-    float lsum = 0.f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      c[w] = expf(sm_m[w][g] - mx);
-      lsum += sm_l[w][g] * c[w];
-    }
-    const float inv_l = 1.f / fmaxf(lsum, 1e-30f);
-    T* o = out + ((size_t)b * H + kvh * G + g) * hd;
-#pragma unroll
-    for (int t = 0; t < D; ++t) {
-      const int d = lane + 32 * t;
-      if (d < hd) {
-        float a = 0.f;
-#pragma unroll
-        for (int w = 0; w < WARPS; ++w) a += sm_acc[w][g][d] * c[w];
-        store(o + d, a * inv_l);
+    for (int w = 0; w < WARPS; ++w) st[w] = states + w * WS;
+    for (int e = threadIdx.x; e < GM * HD + GM; e += THREADS) {
+      float mx;
+      const float v = merge<WARPS, GM, HD>(st, n_warps, e, &mx);
+      if (e < GM * HD) {
+        bs[2 * GM + e] = v;
+      } else {
+        bs[e - GM * HD] = mx;
+        bs[GM + e - GM * HD] = v;
       }
     }
   }
+  if (n_ranks > 1) cluster.sync();
+  else __syncthreads();
+
+  // rank 0: the ranks' states, through distributed shared memory, merged
+  // in the order 0..n_ranks-1, then acc / max(l, 1e-30)
+  if (rank == 0) {
+    const float* st[CLUSTER];
+    st[0] = bs;
+#pragma unroll
+    for (int r = 1; r < CLUSTER; ++r)
+      st[r] = r < n_ranks ? cluster.map_shared_rank(bs, r) : bs;
+    for (int e = threadIdx.x; e < G * HD; e += THREADS) {
+      const int g = e / HD;
+      float mx;
+      const float a = merge<CLUSTER, GM, HD>(st, n_ranks, e, &mx);
+      const float lsum = merge<CLUSTER, GM, HD>(st, n_ranks, GM * HD + g, &mx);
+      store(out + ((size_t)b * H + kvh * G) * HD + e, a / fmaxf(lsum, 1e-30f));
+    }
+  }
+  // the ranks' states stay alive until rank 0 has read them
+  if (n_ranks > 1) cluster.sync();
 }
 
-template <typename T, int D, int GM>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* tables, const int* lengths, const int* row_seg,
-                   void* out, int B, int H, int Hkv, int hd, int page,
-                   int maxp, float scale, cudaStream_t stream) {
-  if (row_seg)
-    paged_decode_kernel<T, D, GM, true><<<B * Hkv, WARPS * 32, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), tables, lengths, row_seg,
-        static_cast<T*>(out), H, Hkv, hd, page, maxp, scale);
+template <class C>
+cudaError_t set_smem(int device) {
+  // the dynamic shared-memory limit, set once per instance and device
+  static std::atomic<unsigned long long> smem_set{0};
+  const unsigned long long bit = 1ull << (device & 63);
+  if (smem_set.load() & bit) return cudaSuccess;
+  for (auto fn : {paged_decode_kernel<C, false>, paged_decode_kernel<C, true>}) {
+    cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (err != cudaSuccess) return err;
+  }
+  smem_set.fetch_or(bit);
+  return cudaSuccess;
+}
+
+struct Args {
+  const void *q, *k, *v;
+  const int *tables, *lengths, *row_seg;
+  void* out;
+  int B, H, Hkv, page, maxp;
+  float scale;
+  int device;
+  cudaStream_t stream;
+};
+
+template <class C>
+cudaError_t launch(const Args& a) {
+  using T = typename C::T;
+  cudaError_t err = set_smem<C>(a.device);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)a.B * a.Hkv * CLUSTER;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (a.row_seg)
+    paged_decode_kernel<C, true><<<(unsigned)blocks, THREADS, C::SMEM,
+                                   a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), a.tables, a.lengths, a.row_seg,
+        static_cast<T*>(a.out), a.H, a.Hkv, a.page, a.maxp, a.scale);
   else
-    paged_decode_kernel<T, D, GM, false><<<B * Hkv, WARPS * 32, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), tables, lengths, row_seg,
-        static_cast<T*>(out), H, Hkv, hd, page, maxp, scale);
+    paged_decode_kernel<C, false><<<(unsigned)blocks, THREADS, C::SMEM,
+                                    a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), a.tables, a.lengths, a.row_seg,
+        static_cast<T*>(a.out), a.H, a.Hkv, a.page, a.maxp, a.scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t by_group(int G, const void* q, const void* k, const void* v,
-                     const int* tables, const int* lengths,
-                     const int* row_seg, void* out, int B, int H, int Hkv,
-                     int hd, int page, int maxp, float scale,
-                     cudaStream_t st) {
-  if (G <= 1)
-    return launch<T, D, 1>(q, k, v, tables, lengths, row_seg, out, B, H,
-                           Hkv, hd, page, maxp, scale, st);
-  if (G <= 2)
-    return launch<T, D, 2>(q, k, v, tables, lengths, row_seg, out, B, H,
-                           Hkv, hd, page, maxp, scale, st);
-  if (G <= 4)
-    return launch<T, D, 4>(q, k, v, tables, lengths, row_seg, out, B, H,
-                           Hkv, hd, page, maxp, scale, st);
-  if (G <= 8)
-    return launch<T, D, 8>(q, k, v, tables, lengths, row_seg, out, B, H,
-                           Hkv, hd, page, maxp, scale, st);
+// Calls f(Cfg<T, hd, GM>{}) for the instance that takes (dtype, hd, G).
+template <typename T, int HD, typename F>
+cudaError_t by_group(int G, F&& f) {
+  if (G <= 1) return f(Cfg<T, HD, 1>{});
+  if (G <= 2) return f(Cfg<T, HD, 2>{});
+  if (G <= 4) return f(Cfg<T, HD, 4>{});
+  if (G <= 8) return f(Cfg<T, HD, 8>{});
   return cudaErrorInvalidValue;
 }
 
-template <typename T>
-cudaError_t by_dim(const void* q, const void* k, const void* v,
-                   const int* tables, const int* lengths, const int* row_seg,
-                   void* out, int B, int H, int Hkv, int hd, int page,
-                   int maxp, float scale, cudaStream_t st) {
-  const int G = H / Hkv;
-  switch ((hd + 31) / 32) {
-    case 1:
-      return by_group<T, 1>(G, q, k, v, tables, lengths, row_seg, out, B,
-                            H, Hkv, hd, page, maxp, scale, st);
-    case 2:
-      return by_group<T, 2>(G, q, k, v, tables, lengths, row_seg, out, B,
-                            H, Hkv, hd, page, maxp, scale, st);
-    case 3:
-      return by_group<T, 3>(G, q, k, v, tables, lengths, row_seg, out, B,
-                            H, Hkv, hd, page, maxp, scale, st);
-    case 4:
-      return by_group<T, 4>(G, q, k, v, tables, lengths, row_seg, out, B,
-                            H, Hkv, hd, page, maxp, scale, st);
+template <typename T, typename F>
+cudaError_t by_dim(int hd, int G, F&& f) {
+  switch (hd) {
+    case 16:
+      return by_group<T, 16>(G, f);
+    case 32:
+      return by_group<T, 32>(G, f);
+    case 64:
+      return by_group<T, 64>(G, f);
+    case 128:
+      return by_group<T, 128>(G, f);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-cudaError_t run(int dtype, const void* q, const void* k, const void* v,
-                const void* tables, const void* lengths, const void* row_seg,
-                void* out, int B, int H, int Hkv, int hd, int page, int maxp,
-                float scale, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (B <= 0) return cudaSuccess;
-  if (page < 1 || page > 32 || Hkv < 1 || H % Hkv != 0)
-    return cudaErrorInvalidValue;
-  const int* tb = static_cast<const int*>(tables);
-  const int* ln = static_cast<const int*>(lengths);
-  const int* rs = static_cast<const int*>(row_seg);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return by_dim<float>(q, k, v, tb, ln, rs, out, B, H, Hkv, hd, page, maxp,
-                         scale, st);
-  if (dtype == 1)
-    return by_dim<__nv_bfloat16>(q, k, v, tb, ln, rs, out, B, H, Hkv, hd,
-                                 page, maxp, scale, st);
+template <typename F>
+cudaError_t dispatch(int dtype, int hd, int G, F&& f) {
+  if (dtype == 0) return by_dim<float>(hd, G, f);
+  if (dtype == 1) return by_dim<__nv_bfloat16>(hd, G, f);
   return cudaErrorInvalidValue;
+}
+
+cudaError_t run(int dtype, const Args& a, int hd) {
+  cudaError_t err = cudaSetDevice(a.device);
+  if (err != cudaSuccess) return err;
+  if (a.B <= 0) return cudaSuccess;
+  if (a.page < 1 || a.maxp < 1 || a.Hkv < 1 || a.H % a.Hkv != 0)
+    return cudaErrorInvalidValue;
+  // 16-byte cp.async of K/V rows
+  for (const void* p : {a.k, a.v})
+    if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorMisalignedAddress;
+  return dispatch(dtype, hd, a.H / a.Hkv,
+                  [&](auto cfg) { return launch<decltype(cfg)>(a); });
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, pages and out share it).
 // Shapes: q (B, H, hd); k/v pages (P, page, Hkv, hd); tables (B, maxp)
-// int32; lengths (B,) int32; out (B, H, hd).  All contiguous.
+// int32; lengths (B,) int32; out (B, H, hd).  All contiguous, the pages
+// 16-byte aligned; hd in {16, 32, 64, 128}, H / Hkv <= 8.
 extern "C" int proserve_paged_decode(int dtype, const void* q, const void* k,
                                      const void* v, const void* tables,
                                      const void* lengths, void* out, int B,
                                      int H, int Hkv, int hd, int page,
                                      int maxp, float scale, int device,
                                      void* stream) {
-  return run(dtype, q, k, v, tables, lengths, nullptr, out, B, H, Hkv, hd,
-             page, maxp, scale, device, stream);
+  const Args a{q, k, v, static_cast<const int*>(tables),
+               static_cast<const int*>(lengths), nullptr, out, B, H, Hkv,
+               page, maxp, scale, device, static_cast<cudaStream_t>(stream)};
+  return run(dtype, a, hd);
 }
 
 // Packed verify: q (R, H, hd); k/v pages (P, page, Hkv, hd); tables
@@ -329,6 +639,48 @@ extern "C" int proserve_packed_verify(int dtype, const void* q,
                                       int H, int Hkv, int hd, int page,
                                       int maxp, float scale, int device,
                                       void* stream) {
-  return run(dtype, q, k, v, tables, lengths, row_seg, out, R, H, Hkv, hd,
-             page, maxp, scale, device, stream);
+  const Args a{q, k, v, static_cast<const int*>(tables),
+               static_cast<const int*>(lengths),
+               static_cast<const int*>(row_seg), out, R, H, Hkv, page, maxp,
+               scale, device, static_cast<cudaStream_t>(stream)};
+  return run(dtype, a, hd);
+}
+
+// The launch shape of the instance that takes (dtype, hd, G) on a device:
+// out[0..6] = blocks per cluster, warps per block, cp.async stages per
+// warp, positions per stage, dynamic shared memory per block (bytes),
+// resident blocks per SM and resident clusters on the device (-1 where
+// the occupancy query fails).
+extern "C" int proserve_paged_decode_info(int dtype, int hd, int G,
+                                          int device, void* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  int* o = static_cast<int*>(out);
+  return dispatch(dtype, hd, G, [&](auto cfg) {
+    using C = decltype(cfg);
+    cudaError_t e = set_smem<C>(device);
+    if (e != cudaSuccess) return e;
+    o[0] = CLUSTER;
+    o[1] = WARPS;
+    o[2] = STAGES;
+    o[3] = C::TP;
+    o[4] = C::SMEM;
+    int n = -1;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n, paged_decode_kernel<C, false>, THREADS, C::SMEM) !=
+        cudaSuccess)
+      n = -1;
+    o[5] = n;
+    cudaLaunchConfig_t lc = {};
+    lc.gridDim = dim3(CLUSTER);
+    lc.blockDim = dim3(THREADS);
+    lc.dynamicSmemBytes = C::SMEM;
+    int nc = -1;
+    if (cudaOccupancyMaxActiveClusters(
+            &nc, reinterpret_cast<const void*>(paged_decode_kernel<C, false>), &lc) != cudaSuccess)
+      nc = -1;
+    o[6] = nc;
+    cudaGetLastError();  // a failed occupancy query leaves no error behind
+    return cudaSuccess;
+  });
 }

@@ -44,6 +44,8 @@ SIGNATURES = {
     # maxp, scale, device, stream
     "proserve_packed_verify": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _F, _I, _P],
+    # dtype, hd, G, device, out (7 ints): the decode kernel's launch shape
+    "proserve_paged_decode_info": [_I, _I, _I, _I, _P],
     # dtype, q, k, v, ctx_lens, out, S, Sq, H, Hkv, hd, Smax, scale,
     # device, stream
     "proserve_packed_prefill": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -8,6 +8,7 @@ launches`` counts the kernel's launches.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -16,8 +17,7 @@ from . import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GROUP = 8        # query heads per kv head the kernel instantiates
-MAX_HEAD_DIM = 128
-MAX_PAGE = 32        # one lane per position of a page
+HEAD_DIMS = (16, 32, 64, 128)   # instantiated in paged_attention.cu
 
 
 def check_tensor(name: str, t: torch.Tensor, device: torch.device,
@@ -36,10 +36,11 @@ def device_index(dev: torch.device) -> int:
     return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
-def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths):
-    """q: (B, H, hd); k/v_pages: (P, page, Hkv, hd); block_tables:
-    (B, maxp) int32 (pad with 0); lengths: (B,) int32.  Returns (B, H, hd)
-    in q's dtype (float32, or bfloat16 with float32 math)."""
+def check_paged(q, k_pages, v_pages, block_tables, lengths) -> None:
+    """The checks both entries of ``csrc/paged_attention.cu`` share: q
+    (rows, H, hd) and the (P, page, Hkv, hd) pages of one CUDA device and
+    dtype, contiguous, the pages 16-byte aligned (the kernel copies their
+    rows in 16-byte pieces); int32 tables and lengths there too."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
@@ -50,19 +51,31 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths):
     check_tensor("v_pages", v_pages, dev, q.dtype, 4)
     check_tensor("block_tables", block_tables, dev, torch.int32, 2)
     check_tensor("lengths", lengths, dev, torch.int32, 1)
-    b, h, hd = q.shape
+    h, hd = q.shape[1:]
     _, page, hkv, hd_k = k_pages.shape
     if v_pages.shape != k_pages.shape or hd_k != hd:
         raise ValueError(f"page shapes {tuple(k_pages.shape)} / "
                          f"{tuple(v_pages.shape)} do not match q {q.shape}")
-    if block_tables.shape[0] != b or lengths.shape[0] != b:
-        raise ValueError("block_tables / lengths rows must equal B")
     if h % hkv or h // hkv > MAX_GROUP:
         raise ValueError(f"H={h}, Hkv={hkv}: need H % Hkv == 0 and "
                          f"H / Hkv <= {MAX_GROUP}")
-    if hd > MAX_HEAD_DIM or not 1 <= page <= MAX_PAGE:
-        raise ValueError(f"head_dim {hd} > {MAX_HEAD_DIM} or page {page} "
-                         f"outside 1..{MAX_PAGE}")
+    if hd not in HEAD_DIMS or page < 1:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS} or page {page} "
+                         f"< 1")
+    if any(t.data_ptr() % 16 for t in (k_pages, v_pages)):
+        raise ValueError("k_pages / v_pages must be 16-byte aligned")
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths):
+    """q: (B, H, hd); k/v_pages: (P, page, Hkv, hd); block_tables:
+    (B, maxp) int32 (pad with 0); lengths: (B,) int32.  Returns (B, H, hd)
+    in q's dtype (float32, or bfloat16 with float32 math)."""
+    check_paged(q, k_pages, v_pages, block_tables, lengths)
+    b, h, hd = q.shape
+    _, page, hkv, _ = k_pages.shape
+    if block_tables.shape[0] != b or lengths.shape[0] != b:
+        raise ValueError("block_tables / lengths rows must equal B")
+    dev = q.device
     out = torch.empty_like(q)
     err = build.library().proserve_paged_decode(
         DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
@@ -76,3 +89,19 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths):
 
 
 paged_decode_attention.launches = 0
+
+
+def launch_shape(dtype: torch.dtype, hd: int, group: int,
+                 device: torch.device) -> dict:
+    """How the kernel instance for (dtype, head_dim, G) launches on
+    ``device``: blocks per cluster, warps per block, cp.async stages per
+    warp, positions per stage, dynamic shared memory per block, resident
+    blocks per SM and resident clusters (-1 where the occupancy query
+    fails).  Launches nothing."""
+    out = (ctypes.c_int * 7)()
+    err = build.library().proserve_paged_decode_info(
+        DTYPES[dtype], hd, group, device_index(device), ctypes.addressof(out))
+    build.check(err, "paged_decode_attention launch_shape")
+    keys = ("cluster", "warps", "stages", "positions_per_stage",
+            "smem_bytes", "blocks_per_sm", "clusters")
+    return dict(zip(keys, out))

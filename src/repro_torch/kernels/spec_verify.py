@@ -23,8 +23,7 @@ import math
 import torch
 
 from . import build
-from .paged_attention import (DTYPES, MAX_GROUP, MAX_HEAD_DIM, MAX_PAGE,
-                              check_tensor, device_index)
+from .paged_attention import DTYPES, check_paged, device_index
 
 
 def packed_verify_attention(q, k_pages, v_pages, block_tables, lengths,
@@ -33,34 +32,17 @@ def packed_verify_attention(q, k_pages, v_pages, block_tables, lengths,
     (P, page, Hkv, hd); block_tables: (S, maxp) int32 (pad with 0);
     lengths: (R,) int32 per row; row_seg: (R,) integer row -> table row in
     [0, S).  Returns (R, H, hd) in q's dtype."""
-    dev = q.device
-    if dev.type != "cuda":
-        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
-    if q.dtype not in DTYPES:
-        raise TypeError(f"unsupported dtype {q.dtype}")
-    check_tensor("q", q, dev, q.dtype, 3)
-    check_tensor("k_pages", k_pages, dev, q.dtype, 4)
-    check_tensor("v_pages", v_pages, dev, q.dtype, 4)
-    check_tensor("block_tables", block_tables, dev, torch.int32, 2)
-    check_tensor("lengths", lengths, dev, torch.int32, 1)
+    check_paged(q, k_pages, v_pages, block_tables, lengths)
     seg = torch.as_tensor(row_seg)
     if seg.dtype not in (torch.int32, torch.int64) or seg.dim() != 1:
         raise TypeError(f"row_seg must be a 1-D integer tensor, got "
                         f"{seg.dtype} {tuple(seg.shape)}")
     r, h, hd = q.shape
-    _, page, hkv, hd_k = k_pages.shape
+    _, page, hkv, _ = k_pages.shape
     n_seg = block_tables.shape[0]
-    if v_pages.shape != k_pages.shape or hd_k != hd:
-        raise ValueError(f"page shapes {tuple(k_pages.shape)} / "
-                         f"{tuple(v_pages.shape)} do not match q {q.shape}")
     if lengths.shape[0] != r or seg.shape[0] != r:
         raise ValueError("lengths / row_seg rows must equal R")
-    if h % hkv or h // hkv > MAX_GROUP:
-        raise ValueError(f"H={h}, Hkv={hkv}: need H % Hkv == 0 and "
-                         f"H / Hkv <= {MAX_GROUP}")
-    if hd > MAX_HEAD_DIM or not 1 <= page <= MAX_PAGE:
-        raise ValueError(f"head_dim {hd} > {MAX_HEAD_DIM} or page {page} "
-                         f"outside 1..{MAX_PAGE}")
+    dev = q.device
     seg = seg.cpu()
     if r and (int(seg.min()) < 0 or int(seg.max()) >= n_seg):
         raise IndexError(f"row_seg out of range [0, {n_seg}): "

@@ -61,6 +61,19 @@ DECODE_CASES = [
     (5, 28, 4, 128, 16, 9, [1, 144, 70, 16, 99]),                  # qwen2-7b
     (3, 4, 2, 16, 8, 5, [1, 40, 23]),                              # smoke
     (2, 8, 1, 32, 32, 3, [96, 31]),                                # G=8
+    # the cluster split's edges (page i -> rank i % 4, warp (i // 4) % 4):
+    # lengths +- 1 around a page, 4 pages (the ranks) and 16 pages (every
+    # split once), a length-0 row, and the 64-page table of max_ctx 1024
+    (16, 16, 16, 64, 16, 64, [0, 1, 15, 16, 17, 63, 64, 65, 255, 256, 257,
+                              511, 512, 513, 1023, 1024]),
+    # Qwen2-7B's G 7 at hd 128 (8-position fp32 stages) past 600 positions
+    (4, 28, 4, 128, 16, 48, [601, 640, 700, 768]),
+    # page 8 (a stage holds one page) and page 32 (two or four stages)
+    (11, 8, 2, 64, 8, 40, [0, 7, 8, 9, 31, 32, 33, 127, 128, 129, 320]),
+    (15, 8, 2, 128, 32, 20, [0, 1, 7, 8, 9, 31, 32, 33, 127, 128, 129, 511,
+                             512, 513, 640]),
+    # page 12: a page is not a whole number of 8-position stages
+    (6, 4, 4, 64, 12, 20, [1, 8, 12, 13, 100, 240]),
 ]
 
 
@@ -72,7 +85,28 @@ def test_paged_decode_matches_plain(cuda, dtype, case):
     out = paged_decode_attention(*args)
     torch.cuda.synchronize()
     want = ref.paged_decode_attention_ref(*args)
-    torch.testing.assert_close(out.float(), want.float(), **tol(dtype))
+    # a length-0 row sees no key: 0, as in the TPU kernel (the plain
+    # version's softmax over all-masked scores is not defined there)
+    live = args[4] > 0
+    torch.testing.assert_close(out[live].float(), want[live].float(),
+                               **tol(dtype))
+    assert torch.equal(out[~live], torch.zeros_like(out[~live]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_paged_decode_row_does_not_depend_on_the_batch(cuda, dtype, case):
+    """The split points depend on a row's length only and the merge order
+    is fixed: each row launched alone gives the bits it has in the batch."""
+    b, h, hkv, hd, page, maxp, lens = case
+    q, kp, vp, bt, ln = decode_inputs(cuda, dtype, b, h, hkv, hd, page, maxp,
+                                      lens)
+    out = paged_decode_attention(q, kp, vp, bt, ln)
+    for i in range(b):
+        one = paged_decode_attention(q[i:i + 1], kp, vp, bt[i:i + 1],
+                                     ln[i:i + 1])
+        torch.cuda.synchronize()
+        assert torch.equal(one[0], out[i])
 
 
 PREFILL_CASES = [
@@ -251,6 +285,9 @@ VERIFY_CASES = [
                                  500, 511, 512, 513, 600, 700, 760]),
     (5, 1, 28, 4, 128, 16, 12, [0, 40, 77, 150, 180]),       # qwen2-7b
     (3, 3, 4, 2, 16, 8, 5, [3, 17, 30]),                      # smoke
+    # one request's rows cross a split edge: 63..65 (4 pages, the ranks),
+    # 255..257 (16 pages, every split), 1021..1023 (the 64-page table)
+    (4, 2, 16, 16, 64, 16, 64, [62, 254, 1020, 5]),
 ]
 
 
@@ -271,6 +308,31 @@ def test_packed_verify_matches_plain_and_decode_bitwise(cuda, dtype, case):
     dec = paged_decode_attention(q, kp, vp, gathered, ln)
     torch.cuda.synchronize()
     assert torch.equal(out, dec)
+
+
+def test_paged_wrappers_refuse_pages_off_16_bytes(cuda):
+    """The decode / verify kernel copies K/V rows in 16-byte pieces: pages
+    that start 4 bytes into their storage, or a head_dim it does not
+    instantiate, are refused before any launch."""
+    q, kp, vp, bt, ln = decode_inputs(cuda, torch.float32, *DECODE_CASES[2])
+    seg = torch.zeros(q.shape[0], dtype=torch.int32)
+    d0 = paged_decode_attention.launches
+    v0 = packed_verify_attention.launches
+    for i, t in enumerate((kp, vp)):
+        off = torch.empty(t.numel() + 1, device=cuda)[1:].view(t.shape)
+        off.copy_(t)
+        pages = [kp, vp]
+        pages[i] = off
+        with pytest.raises(ValueError):
+            paged_decode_attention(q, *pages, bt, ln)
+        with pytest.raises(ValueError):
+            packed_verify_attention(q, *pages, bt, ln, seg)
+    with pytest.raises(ValueError):
+        paged_decode_attention(q[..., :8].contiguous(),
+                               kp[..., :8].contiguous(),
+                               vp[..., :8].contiguous(), bt, ln)
+    assert paged_decode_attention.launches == d0
+    assert packed_verify_attention.launches == v0
 
 
 def test_dispatch_routes_cuda_tensors_to_the_kernels(cuda):

@@ -443,3 +443,175 @@ def test_1xtf32_attention_misses_the_fp32_tolerance(hd):
     assert err > 5e-5
     with pytest.raises(AssertionError):
         torch.testing.assert_close(got, want.float(), atol=2e-5, rtol=2e-5)
+
+
+# --------------------------------------------------------------------------
+# The schedule of the paged decode / verify kernel (csrc/paged_attention.cu),
+# emulated in plain PyTorch: pages split over a cluster of blocks and their
+# warps by page index, TP-position stages, per-split (m, l, acc) in log2
+# units, and the fixed-order merge (warps in a block, then the blocks of the
+# cluster).
+# --------------------------------------------------------------------------
+
+NEG_INF = -1e30
+LOG2E = 1.4426950408889634
+
+
+def cu_constant(name):
+    """A ``constexpr int`` of ``csrc/paged_attention.cu``."""
+    import re
+
+    from repro_torch.kernels import build
+    src = (build.CSRC / "paged_attention.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def stage_positions(hd, itemsize):
+    """Positions per cp.async stage (``Cfg::TP``): ~STAGE_BYTES of K and V
+    rows, clamped to 8..32."""
+    return min(max(cu_constant("STAGE_BYTES") // (2 * hd * itemsize), 8),
+               32)
+
+
+def merge_states(states, g, hd):
+    """(m, l, acc) states merged in list order, as the kernel merges the
+    warps of a block and then the blocks of a cluster that have pages; no
+    state gives (NEG_INF, 0, 0)."""
+    if not states:
+        return (torch.full((g,), NEG_INF, dtype=torch.float32),
+                torch.zeros(g), torch.zeros(g, hd))
+    mx = states[0][0]
+    for m, _, _ in states[1:]:
+        mx = torch.maximum(mx, m)
+    l_sum = torch.zeros_like(mx)
+    acc = torch.zeros_like(states[0][2])
+    for m, l_, a in states:
+        c = torch.exp2(m - mx)
+        l_sum = l_sum + c * l_
+        acc = acc + c[:, None] * a
+    return mx, l_sum, acc
+
+
+def split_decode(q, kp, vp, tables, lengths, row_seg=None, itemsize=4):
+    """The kernel's schedule for every (row, kv head): page i goes to block
+    rank i % CLUSTER and warp (i // CLUSTER) % WARPS; each warp walks its
+    pages in TP-position stages with an fp32 online softmax in log2 units
+    (scores scaled, then masked); the warps with pages merge in order,
+    then the ranks with pages."""
+    cl, warps = cu_constant("CLUSTER"), cu_constant("WARPS")
+    rows, h, hd = q.shape
+    page, hkv = kp.shape[1], kp.shape[2]
+    g = h // hkv
+    maxp = tables.shape[1]
+    tp = stage_positions(hd, itemsize)
+    scale2 = torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32) \
+        * torch.tensor(LOG2E, dtype=torch.float32)
+    neg = torch.tensor(NEG_INF, dtype=torch.float32)
+    out = torch.zeros(rows, h, hd, dtype=torch.float32)
+    for b in range(rows):
+        trow = tables[int(row_seg[b]) if row_seg is not None else b]
+        ln = int(lengths[b])
+        n_pages = min(-(-ln // page), maxp) if ln > 0 else 0
+        for kvh in range(hkv):
+            qg = q[b, kvh * g:(kvh + 1) * g].float()
+            blocks = []
+            for rank in range(cl):
+                states = []
+                for w in range(warps):
+                    m = torch.full((g,), NEG_INF, dtype=torch.float32)
+                    l_ = torch.zeros(g)
+                    acc = torch.zeros(g, hd)
+                    for i in range(w * cl + rank, n_pages, cl * warps):
+                        for j0 in range(0, page, tp):
+                            pos0 = i * page + j0
+                            if pos0 >= ln:
+                                break
+                            rows_ = slice(j0, min(j0 + tp, page))
+                            k = kp[int(trow[i]), rows_, kvh].float()
+                            v = vp[int(trow[i]), rows_, kvh].float()
+                            valid = pos0 + torch.arange(k.shape[0]) < ln
+                            s = torch.where(valid, (qg @ k.T) * scale2, neg)
+                            m_new = torch.maximum(m, s.max(dim=1).values)
+                            alpha = torch.exp2(m - m_new)
+                            p = torch.where(valid, torch.exp2(
+                                s - m_new[:, None]), torch.zeros(()))
+                            l_ = l_ * alpha + p.sum(dim=1)
+                            acc = acc * alpha[:, None] + p @ v
+                            m = m_new
+                    if w * cl + rank < n_pages:
+                        states.append((m, l_, acc))
+                if rank < n_pages:
+                    blocks.append(merge_states(states, g, hd))
+            _, l_sum, acc = merge_states(blocks, g, hd)
+            out[b, kvh * g:(kvh + 1) * g] = \
+                acc / torch.clamp(l_sum, min=1e-30)[:, None]
+    return out.to(q.dtype)
+
+
+def split_lengths(page, tp, maxp):
+    """0, 1, a stage's and a page's edges, the edges of the cluster's
+    ranks (CLUSTER pages) and of the whole split (CLUSTER * WARPS pages),
+    each +- 1, and the full table."""
+    splits = cu_constant("CLUSTER") * cu_constant("WARPS")
+    edges = [tp, page, 2 * page, cu_constant("CLUSTER") * page,
+             splits * page]
+    lens = {0, 1, maxp * page}
+    for e in edges:
+        lens |= {e - 1, e, e + 1}
+    return sorted(n for n in lens if 0 <= n <= maxp * page)
+
+
+@pytest.mark.parametrize("page", [8, 16, 32])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("g", [1, 7, 8])
+def test_decode_split_schedule_matches_plain(g, hd, page):
+    """The emulated split/merge schedule equals the plain version at fp32
+    2e-5 at every split edge; a length-0 row writes 0 (every split empty),
+    where the plain version's softmax over masked scores is not defined."""
+    hkv = 2
+    maxp = cu_constant("CLUSTER") * cu_constant("WARPS") + 3
+    lens = split_lengths(page, stage_positions(hd, 4), maxp)
+    rng = np.random.default_rng(g * 1000 + hd + page)
+    b, n_pages = len(lens), len(lens) * maxp + 1
+    q = torch.as_tensor(rng.standard_normal((b, g * hkv, hd)),
+                        dtype=torch.float32)
+    kp = torch.as_tensor(rng.standard_normal((n_pages, page, hkv, hd)),
+                         dtype=torch.float32)
+    vp = torch.as_tensor(rng.standard_normal((n_pages, page, hkv, hd)),
+                         dtype=torch.float32)
+    bt = torch.as_tensor(1 + rng.permutation(n_pages - 1).reshape(b, maxp),
+                         dtype=torch.int32)
+    ln = torch.as_tensor(lens, dtype=torch.int32)
+    got = split_decode(q, kp, vp, bt, ln)
+    want = tref.paged_decode_attention_ref(q, kp, vp, bt, ln)
+    live = ln > 0
+    torch.testing.assert_close(got[live], want[live], atol=2e-5, rtol=2e-5)
+    assert torch.equal(got[~live], torch.zeros_like(got[~live]))
+
+
+@pytest.mark.parametrize("itemsize", [4, 2], ids=["fp32_stages",
+                                                  "bf16_stages"])
+@pytest.mark.parametrize("base", [[15, 63, 255], [0, 62, 254]],
+                         ids=["rows_cross_split_edges", "first_rows_empty"])
+def test_decode_split_verify_row_is_decode_row_bitwise(base, itemsize):
+    """A verify row runs the decode schedule on table row row_seg[b]: its
+    emulated result is bitwise the decode row's on tables[row_seg], and
+    the rows of one request that cross a rank or split edge (lengths
+    l_kv + 1 .. l_kv + 3 around 64 and 256 at page 16) match the plain
+    version."""
+    depth, page, hkv, g, hd = 2, 16, 2, 4, 64
+    rng = np.random.default_rng(sum(base) + itemsize)
+    maxp = 20
+    q, kp, vp, tables, lengths, row_seg = verify_case(
+        rng, len(base), depth, page, hkv, g, hd, len(base) * maxp + 1, maxp,
+        base)
+    q, kp, vp = (torch.as_tensor(a, dtype=torch.float32) for a in (q, kp, vp))
+    tables, lengths, row_seg = (torch.as_tensor(a) for a in
+                                (tables, lengths, row_seg))
+    got = split_decode(q, kp, vp, tables, lengths, row_seg, itemsize)
+    dec = split_decode(q, kp, vp, tables[row_seg.long()], lengths,
+                       itemsize=itemsize)
+    assert torch.equal(got, dec)
+    want = tref.packed_verify_attention_ref(q, kp, vp, tables, lengths,
+                                            row_seg)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
