@@ -36,7 +36,16 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                The decode and verify kernels' bf16 instances are held at
                2e-2 and timed beside their plain versions the same way,
                and the decode instance's cluster size, shared memory per
-               block and residency are printed for each width.
+               block and residency are printed for each width.  Then the
+               shapes opened last: ChatGLM3-6B's G 16 at hd 128 (decode
+               and verify in two head groups of 8) and head_dim 8, decode,
+               verify, packed and chunked prefill, fp32 and bf16, against
+               the plain versions, with verify = decode and chunked =
+               packed bitwise and, at G 16, a head's bits the same in
+               either head group (times printed); and kv_block_quantize
+               bitwise at ChatGLM3-6B's block width (8, 28, 2, 16, 2,
+               128), fp32 and bf16 in, and at 26 Qwen1.5-0.5B blocks (the
+               tiered pass's median call), each timed (printed).
   4. serve   — the port's entry point ``repro_torch.launch.serve`` at the
                full width of Qwen1.5-0.5B (24 layers, fp32, random weights
                from seed 0): two waves of multi-priority requests with
@@ -58,7 +67,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                restores, demotions and spills all happen.  (b) With the
                int8 cold tier every request completes, both kv_quant
                kernels launch as often as the tiers called them, and every
-               quantized plane comes back within scale / 2.
+               quantized plane comes back within scale / 2; the quantize
+               calls are printed by their number of blocks.
   6. spec    — ``serve --spec-k 2`` on the serve traffic, with a draft of
                the target's weights and with one from seed 7: every stream
                equals greedy forward; proposed = accepted + rejected; the
@@ -73,6 +83,12 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                chunk, the logits decode): exact streams; the chunked kernel
                launches n_layers x the prefill_chunk calls; host syncs equal
                decode launches + prompt completions.
+  8. glm     — ``serve --arch chatglm3_6b`` at its full published width (28
+               layers, d_model 4096, H 32 / Hkv 2, hd 128, d_ff 13696,
+               vocab 65024; ~25 GB of fp32 weights from seed 0, nothing
+               cut) on the serve traffic: evictions, exact streams, the
+               serve phase's launch-count and host-sync gates; its wall,
+               peak memory and launches printed.
 
 fp32 matmuls run in full fp32: TF32 is switched off for cuBLAS and cuDNN.
 The last two lines are the ``{"kernels": ...}`` JSON and the
@@ -285,19 +301,21 @@ def bf16_prefill(name, kernel, plain, args, ctx, rows=None) -> dict:
         shape=f"q {tuple(q.shape)} kv {tuple(kc.shape)} bf16")
 
 
-def bf16_paged(name, kernel, plain, args, bound_fn) -> dict:
-    """The bf16 instance of a paged kernel (decode, verify) at an fp32
-    row's shapes: held at 2e-2 against its plain version and timed beside
-    it (printed; the JSON line keeps the fp32 rows)."""
-    err = compare(f"{name} (bf16)", kernel(*args), plain(*args))
+def measure(name, kernel, plain, args, bound_fn, rows=None,
+            library=None) -> dict:
+    """A kernel held against its plain version (fp32 2e-5, bf16 2e-2) and
+    timed beside it in turns, cold and warm L2, and beside ``library``
+    where one PyTorch call computes the same function."""
+    err = compare(name, kernel(*args), plain(*args), rows)
     k, p = turns(lambda: kernel(*args), lambda: plain(*args))
     b = bound_fn(*args)
     return dict(
         max_abs_err=err, ms=float(np.mean(k)),
         warm_l2_ms=time_ms(lambda: kernel(*args), cold_l2=False),
-        plain_ms=float(np.mean(p)), library_ms=None, bound_ms=b[0],
-        bound_by=b[1], shape=f"q {tuple(args[0].shape)} pages "
-        f"{tuple(args[1].shape)} bf16")
+        plain_ms=float(np.mean(p)),
+        library_ms=time_ms(library) if library else None, bound_ms=b[0],
+        bound_by=b[1], shape=f"q {tuple(args[0].shape)} kv "
+        f"{tuple(args[1].shape)} {str(args[0].dtype)[6:]}")
 
 
 def print_launch_shape(q, kp) -> None:
@@ -308,7 +326,8 @@ def print_launch_shape(q, kp) -> None:
     for dt in (torch.float32, torch.bfloat16):
         ls = launch_shape(dt, hd, g, q.device)
         print(f"  paged_attention.cu instance ({str(dt)[6:]}, hd {hd}, G "
-              f"{g}): cluster {ls['cluster']} blocks x {ls['warps']} warps, "
+              f"{g}): {ls['head_groups']} head group(s) per (row, kv head), "
+              f"cluster {ls['cluster']} blocks x {ls['warps']} warps, "
               f"{ls['stages']} cp.async stages of "
               f"{ls['positions_per_stage']} positions per warp, "
               f"{ls['smem_bytes']} B shared memory per block, "
@@ -395,8 +414,10 @@ def kernels_phase(dev) -> dict:
             ref.packed_prefill_attention_ref,
             [a.bfloat16() if a.is_floating_point() else a for a in p_args],
             ctx, rows)
-        results[label]["paged_decode_attention (bf16)"] = bf16_paged(
-            "paged_decode_attention", paged_decode_attention,
+        # the bf16 instance at the fp32 row's shapes (printed; the JSON
+        # line keeps the fp32 rows)
+        results[label]["paged_decode_attention (bf16)"] = measure(
+            "paged_decode_attention (bf16)", paged_decode_attention,
             ref.paged_decode_attention_ref,
             [a.bfloat16() if a.is_floating_point() else a for a in d_args],
             lambda q, kp, vp, bt, ln: decode_bound(q, kp, bt, ln))
@@ -408,6 +429,7 @@ def kernels_phase(dev) -> dict:
                   f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, "
                   f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) "
                   f"[{r['shape']}]", flush=True)
+    results["slice 6"] = slice6_kernels(rng, dev)
     return results
 
 
@@ -534,8 +556,8 @@ def slice3_kernels(rng, dev, p_args) -> dict:
             shape=f"q {tuple(q.shape)} kv {tuple(kc.shape)} cache_lens "
                   f"{cl.tolist()}"),
         "chunked_prefill_attention (bf16)": c_bf16,
-        "packed_verify_attention (bf16)": bf16_paged(
-            "packed_verify_attention",
+        "packed_verify_attention (bf16)": measure(
+            "packed_verify_attention (bf16)",
             lambda *a: packed_verify_attention(*a, seg),
             lambda *a: ref.packed_verify_attention_ref(*a, seg), v_bf,
             lambda q, kp, vp, bt, ln: verify_bound(q, kp, bt, ln, seg)),
@@ -551,6 +573,97 @@ def slice3_kernels(rng, dev, p_args) -> dict:
                   f"{tuple(v_args[1].shape)} tables {tuple(v_args[3].shape)}"
                   f", 16 requests x 3 rows, l_kv {base}"),
     }
+
+
+def slice6_kernels(rng, dev) -> dict:
+    """The shapes the attention kernels took on last: ChatGLM3-6B's G 16 at
+    hd 128 (decode and verify in two head groups of 8) and head_dim 8 (the
+    dense SMOKE configs), each at the serve phase's decode and verify
+    shapes and at prefill shapes, fp32 and bf16: against the plain versions
+    (fp32 2e-5, bf16 2e-2), verify = decode and chunked = packed bitwise,
+    and at G 16 a head's bits the same in either head group.  Timed beside
+    the plain versions, SDPA for prefill, and their bounds (printed, not
+    in the JSON line)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.chunked_prefill import (
+        chunked_prefill_attention, packed_prefill_attention)
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    from repro_torch.kernels.spec_verify import packed_verify_attention
+
+    def sdpa(q, kc, vc, ctx):
+        a = sdpa_inputs(q, kc, vc, ctx)
+        return lambda: F.scaled_dot_product_attention(
+            a[0], a[1], a[2], attn_mask=a[3], enable_gqa=True)
+
+    lens = [1, 2, 15, 16, 17, 64, 100, 200, 333, 400, 512, 513, 600, 700,
+            767, 768]
+    out = {}
+    for label, (h, hkv, hd) in {"chatglm3-6b (G 16, hd 128)": (32, 2, 128),
+                                "hd 8": (8, 2, 8)}.items():
+        print(f"  -- {label}", flush=True)
+        d_f32 = decode_case(rng, 16, h, hkv, hd, 16, 48, lens, dev)
+        print_launch_shape(d_f32[0], d_f32[1])
+        v_f32, seg = verify_case(rng, 16, 2, h, hkv, hd, 16, 160, 48,
+                                 lens[:-2] + [764, 765], dev)
+        p_f32 = prefill_case(rng, 4, 256, 512, h, hkv, hd, [0, 256, 100, 64],
+                             dev)
+        c_f32 = prefill_case(rng, 1, 512, 1024, h, hkv, hd, [512], dev)
+        for dt in ("fp32", "bf16"):
+            cast = (lambda a: a) if dt == "fp32" else (lambda a: [
+                t.bfloat16() if t.is_floating_point() else t for t in a])
+            d, v, p, c = cast(d_f32), cast(v_f32), cast(p_f32), cast(c_f32)
+            out[f"{label} paged_decode_attention ({dt})"] = measure(
+                f"paged_decode_attention ({dt})", paged_decode_attention,
+                ref.paged_decode_attention_ref, d,
+                lambda q, kp, vp, bt, ln: decode_bound(q, kp, bt, ln))
+            out[f"{label} packed_verify_attention ({dt})"] = measure(
+                f"packed_verify_attention ({dt})",
+                lambda *a: packed_verify_attention(*a, seg),
+                lambda *a: ref.packed_verify_attention_ref(*a, seg), v,
+                lambda q, kp, vp, bt, ln: verify_bound(q, kp, bt, ln, seg))
+            q, kp, vp, bt, ln = v
+            bitwise(f"packed_verify_attention rows = paged_decode_attention "
+                    f"on tables[row_seg] ({dt})",
+                    packed_verify_attention(*v, seg),
+                    paged_decode_attention(q, kp, vp, bt[seg.to(dev).long()]
+                                           .contiguous(), ln))
+            q, kc, vc, ctx = p
+            out[f"{label} packed_prefill_attention ({dt})"] = measure(
+                f"packed_prefill_attention ({dt})", packed_prefill_attention,
+                ref.packed_prefill_attention_ref, p,
+                lambda q, kc, vc, ctx: prefill_bound(q, kc, ctx),
+                rows=real_rows(ctx, q.shape[1], kc.shape[1]),
+                library=sdpa(*p))
+            one = torch.stack([chunked_prefill_attention(
+                q[i:i + 1], kc[i:i + 1], vc[i:i + 1],
+                ctx[i:i + 1] + q.shape[1])[0] for i in range(q.shape[0])])
+            bitwise(f"chunked_prefill_attention per request = "
+                    f"packed_prefill_attention per segment ({dt})", one,
+                    packed_prefill_attention(*p))
+            q, kc, vc, cl = c
+            out[f"{label} chunked_prefill_attention ({dt})"] = measure(
+                f"chunked_prefill_attention ({dt})",
+                chunked_prefill_attention, ref.chunked_prefill_attention_ref,
+                c, lambda q, kc, vc, cl: prefill_bound(q, kc, cl - q.shape[1]),
+                library=sdpa(q, kc, vc, cl - q.shape[1]))
+            if h // hkv > 8:
+                # queries of the two head groups swapped: outputs swapped
+                q, kp, vp, bt, ln = d
+                g = h // hkv
+                perm = torch.arange(h, device=dev).reshape(
+                    hkv, 2, g // 2).flip(1).reshape(-1)
+                bitwise(f"paged_decode_attention with the head groups' "
+                        f"queries swapped = its output swapped ({dt})",
+                        paged_decode_attention(q[:, perm].contiguous(), kp,
+                                               vp, bt, ln),
+                        paged_decode_attention(q, kp, vp, bt, ln)[:, perm])
+    for name, r in out.items():
+        print(f"  {name}: kernel {r['ms']:.4f} ms (warm L2 "
+              f"{r['warm_l2_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+              f"library {r['library_ms']} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}) [{r['shape']}]", flush=True)
+    return out
 
 
 def exact(name: str, got, want) -> float:
@@ -585,6 +698,17 @@ def copy_kernels(rng, dev) -> dict:
                   ref.kv_block_quantize_ref(x))
     exact("kv_block_quantize (bf16 in)", kv_block_quantize(x.bfloat16()),
           ref.kv_block_quantize_ref(x.bfloat16()))
+    # one demoted group of 8 ChatGLM3-6B blocks: 4096 values a plane
+    xg = torch.as_tensor(rng.standard_normal((n, 28, 2, bs, 2, 128)),
+                         dtype=torch.float32, device=dev)
+    xg[0, 3, 1] = 0.0
+    xg[1, 0, 0] = (torch.arange(bs * 2 * 128, device=dev).reshape(
+        bs, 2, 128) - 2000) * 0.5
+    exact("kv_block_quantize (ChatGLM3-6B blocks)", kv_block_quantize(xg),
+          ref.kv_block_quantize_ref(xg))
+    exact("kv_block_quantize (ChatGLM3-6B blocks, bf16 in)",
+          kv_block_quantize(xg.bfloat16()),
+          ref.kv_block_quantize_ref(xg.bfloat16()))
     vals, scales = ref.kv_block_quantize_ref(x)
     d_err = exact("kv_block_dequantize", kv_block_dequantize(vals, scales),
                   ref.kv_block_dequantize_ref(vals, scales))
@@ -608,6 +732,17 @@ def copy_kernels(rng, dev) -> dict:
     r, e = n * lyr * 2, bs * hkv * hd
     q_k, q_p = turns(lambda: kv_block_quantize(x),
                      lambda: ref.kv_block_quantize_ref(x))
+    qg_k, qg_p = turns(lambda: kv_block_quantize(xg),
+                       lambda: ref.kv_block_quantize_ref(xg))
+    # the tiered pass (b) quantizes groups of 4 to 32 Qwen1.5-0.5B blocks,
+    # half of them 25 or more (its printed histogram, NVIDIA H100 80GB
+    # HBM3 @ 700 W): 26 blocks, 1248 plane rows
+    x26 = torch.as_tensor(rng.standard_normal((26, lyr, 2, bs, hkv, hd)),
+                          dtype=torch.float32, device=dev)
+    exact("kv_block_quantize (26 blocks)", kv_block_quantize(x26),
+          ref.kv_block_quantize_ref(x26))
+    q26_k, q26_p = turns(lambda: kv_block_quantize(x26),
+                         lambda: ref.kv_block_quantize_ref(x26))
     d_k, d_p = turns(lambda: kv_block_dequantize(vals, scales),
                      lambda: ref.kv_block_dequantize_ref(vals, scales))
     g_k, g_p = turns(lambda: block_gather(kv, idx, 2),
@@ -625,6 +760,19 @@ def copy_kernels(rng, dev) -> dict:
             warm_l2_ms=time_ms(lambda: kv_block_quantize(x), cold_l2=False),
             bound=bound(r * e * (4 + 1) + 4 * r, 0),
             shape=f"blocks {tuple(x.shape)} fp32"),
+        "kv_block_quantize (26 blocks)": dict(
+            max_abs_err=0.0, ms=float(np.mean(q26_k)),
+            plain_ms=float(np.mean(q26_p)), library_ms=None,
+            warm_l2_ms=time_ms(lambda: kv_block_quantize(x26),
+                               cold_l2=False),
+            bound=bound(x26.numel() * (4 + 1) + 4 * 26 * lyr * 2, 0),
+            shape=f"blocks {tuple(x26.shape)} fp32"),
+        "kv_block_quantize (chatglm3-6b)": dict(
+            max_abs_err=0.0, ms=float(np.mean(qg_k)),
+            plain_ms=float(np.mean(qg_p)), library_ms=None,
+            warm_l2_ms=time_ms(lambda: kv_block_quantize(xg), cold_l2=False),
+            bound=bound(xg.numel() * (4 + 1) + 4 * n * 28 * 2, 0),
+            shape=f"blocks {tuple(xg.shape)} fp32"),
         # library: one broadcast multiply; int8 x fp32 promotes to fp32
         "kv_block_dequantize": dict(
             max_abs_err=d_err, ms=float(np.mean(d_k)), plain_ms=float(
@@ -680,7 +828,7 @@ def check_streams(res, label: str) -> None:
     t0 = time.monotonic()
     for r, prompt in res.requests:
         got = eng.outputs[r.rid]
-        key = (prompt.tobytes(), r.output_len)
+        key = (cfg.name, prompt.tobytes(), r.output_len)
         if key in _GREEDY:
             if got != _GREEDY[key]:
                 fail(f"{label}: rid {r.rid} (priority {r.priority}) != "
@@ -928,6 +1076,42 @@ def per_request_phase(card: str):
     return counts
 
 
+def glm_phase(card: str):
+    """``launch/serve.py`` at ChatGLM3-6B's full published width (28
+    layers, d_model 4096, H 32 / Hkv 2 so G 16, hd 128, d_ff 13696, vocab
+    65024, half-rotary RoPE, QKV bias; fp32 weights from ``init_params``,
+    nothing cut) on the serve traffic: every stream equals greedy forward
+    under the serve phase's launch-count and host-sync gates."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    res = serve.main(["--arch", "chatglm3_6b", "--device", "cuda", "--seed",
+                      "0"])
+    counts = ops.launch_counts()
+    t_serve = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated()
+    st = res.engine.stats
+    report(res, counts, "glm", card)
+    if st.evictions < 1:
+        fail("glm: no eviction")
+    check_launches(res, counts, "glm")
+    check_streams(res, "glm")
+    print(f"  [{card}] glm: init + serve {t_serve:.1f} s (serve wall "
+          f"{res.wall_s:.3f} s), phase {time.monotonic() - t0:.1f} s with "
+          f"the greedy check; max_memory_allocated {peak / 2**30:.2f} GiB "
+          f"through the serve; "
+          f"{st.decode_launches} decode launches, "
+          f"{st.packed_prefill_calls} packed prefill calls "
+          f"(paged_decode_attention x{counts['paged_decode_attention']}, "
+          f"packed_prefill_attention x{counts['packed_prefill_attention']})",
+          flush=True)
+    res.engine.kill()
+    return counts
+
+
 # |x - dequant(quant(x))| <= scale / 2 exactly; in fp32 three roundings of
 # values up to 127 steps (inv = 1 / scale, x * inv, q * scale) add at most
 # 3 * 127 * 2^-24 of a step
@@ -937,11 +1121,12 @@ QUANT_BOUND_STEPS = 0.5 + 3 * 127 * 2.0 ** -24
 class QuantAudit:
     """Wraps ``ops.kv_block_quantize`` for one run: checks on the card
     that every quantized plane comes back within ``QUANT_BOUND_STEPS``
-    of its scale."""
+    of its scale, and counts the calls by their number of blocks."""
 
     def __init__(self, ops):
         self.ops, self.inner = ops, ops.kv_block_quantize
         self.calls, self.planes = 0, 0
+        self.by_blocks: dict = {}
         self.worst = torch.zeros((), device="cuda")
 
     def __call__(self, blocks):
@@ -953,6 +1138,8 @@ class QuantAudit:
         self.worst = torch.maximum(self.worst, (err / step).max().float())
         self.calls += 1
         self.planes += scales.numel()
+        n = blocks.shape[0]
+        self.by_blocks[n] = self.by_blocks.get(n, 0) + 1
         return vals, scales
 
     def __enter__(self):
@@ -1015,7 +1202,9 @@ def tiered_phase(card: str):
              f"(bound {QUANT_BOUND_STEPS:.7f})")
     print(f"  {audit.planes} planes in {audit.calls} quantize calls: worst "
           f"|x - dequant(quant(x))| = {worst:.7f} x scale (bound "
-          f"{QUANT_BOUND_STEPS:.7f} = 1/2 + fp32 rounding)", flush=True)
+          f"{QUANT_BOUND_STEPS:.7f} = 1/2 + fp32 rounding); calls by "
+          f"blocks per call {dict(sorted(audit.by_blocks.items()))}",
+          flush=True)
     same = total = 0
     for (ra, _), (rb, _) in zip(exact_res.requests, int8_res.requests):
         a, b = exact_res.engine.outputs[ra.rid], int8_res.engine.outputs[rb.rid]
@@ -1279,6 +1468,9 @@ def main() -> None:
     phase("per-request")
     counts_pr = per_request_phase(card)
 
+    phase("glm")
+    counts_glm = glm_phase(card)
+
     if "--profile" in sys.argv[1:]:
         phase("profile")
         profile_phase(ROOT / "build" / "profile")
@@ -1313,7 +1505,8 @@ def main() -> None:
     runs = {"serve": counts, "serve, lanes off": counts_off,
             "tiered (a)": counts_a, "tiered (b)": counts_b,
             "spec, same draft": counts_same,
-            "spec, other draft": counts_other, "per-request": counts_pr}
+            "spec, other draft": counts_other, "per-request": counts_pr,
+            "glm": counts_glm}
     launches = {name: sum(c[name] for c in runs.values()) for name in meta}
     for name, n in launches.items():
         if n < 1:

@@ -69,6 +69,10 @@
 //    branch per 8-key step serialised them).  Row tiles are launched heaviest
 //    first (blockIdx.z walks the farthest horizons first, over all heads
 //    and segments), so one wave does not end on its heaviest block.
+//  * head_dim 8 (the SMOKE configs): fp32 Q K^T is one k8 step and P V one
+//    n-tile; bf16 Q K^T is one k16 step whose dims 8-15 are zero in the Q
+//    and K fragments (set in registers, never read), so the step adds
+//    exact zero products, and P V is one n-tile fed by ldmatrix.x2.
 //  * A row's sum order depends only on (its segment's ctx, r, Sq, G, HD,
 //    Smax): BK depends only on HD and the type, key tiles start at 0, no
 //    row's keys are split across blocks (no split-K, no atomics).
@@ -107,6 +111,10 @@ struct Cfg {
   static constexpr int CH = HD / EPC;              // 16-byte chunks a row
   static constexpr int NT = BK / 8;                // 8-key n-tiles of S
   static constexpr int DT = HD / 8;                // 8-dim n-tiles of O
+  // dims per k-step of Q K^T, and the k-steps: bf16 hd 8 takes one
+  // 16-dim step whose dims 8-15 are zero in Q and K (exact zero products)
+  static constexpr int KSTEP = F32 ? 8 : 16;
+  static constexpr int QK = (HD + KSTEP - 1) / KSTEP;
   // Q's fragments in registers, except fp32 hd 128 (register budget)
   static constexpr bool Q_REGS = !(F32 && HD == 128);
   static constexpr int STAGE = BK * (K_STR + V_STR);  // K and V tiles
@@ -179,6 +187,15 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+// two 8x8 matrices, rows addressed by lanes 0-15
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
       : "r"(smem_addr(p))
       : "memory");
 }
@@ -298,11 +315,19 @@ packed_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // the 8-dim step; bf16 slot pairs (2 tig, +1), (2 tig + 8, +9) <-> dims
   // 4 tig .. 4 tig + 3 of the 16-dim step.  K's B fragments use the same
   // permutation, so each lane reads both of its slots in one 8-byte load.
-  constexpr int QK = C::F32 ? HD / 8 : HD / 16;  // k-steps of Q K^T
+  constexpr int QK = C::QK, KSTEP = C::KSTEP;
   constexpr int QR = C::Q_REGS ? QK : 1;
-  constexpr int KSTEP = C::F32 ? 8 : 16;          // dims per k-step
+  // this lane's k-slot dims of step kk lie in the head (bf16 hd 8: only
+  // lanes tig < 2; the others hold the step's zero dims 8-15)
+  auto k_live = [&](int kk) {
+    return HD % KSTEP == 0 || KSTEP * kk + 4 * tig < HD;
+  };
   uint32_t qr[QR][4];
   auto q_frag = [&](const T* q_rows, int kk, uint32_t (&a)[4]) {
+    if (!k_live(kk)) {
+      a[0] = a[1] = a[2] = a[3] = 0u;
+      return;
+    }
     const T* qa = q_rows + (16 * warp + gid) * K_STR + KSTEP * kk +
                   (C::F32 ? 2 : 4) * tig;
     const uint2 x = *reinterpret_cast<const uint2*>(qa);
@@ -373,9 +398,9 @@ packed_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
-          const uint2 kw = *reinterpret_cast<const uint2*>(
+          const uint2 kw = k_live(kk) ? *reinterpret_cast<const uint2*>(
               ks + (8 * j + gid) * K_STR + KSTEP * kk +
-              (C::F32 ? 2 : 4) * tig);
+              (C::F32 ? 2 : 4) * tig) : make_uint2(0u, 0u);
           if constexpr (C::F32) {
             uint32_t bb[2], bs[2];
             split(__uint_as_float(kw.x), bb[0], bs[0]);
@@ -472,6 +497,12 @@ packed_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
             mma_bf16(o[2 * np], a, b[0], b[1]);
             mma_bf16(o[2 * np + 1], a, b[2], b[3]);
           }
+          if constexpr (DT % 2) {  // hd 8: one 8-dim n-tile
+            uint32_t b[2];
+            ldmatrix_x2_trans(
+                b, vs + (16 * jj + (lane & 15)) * V_STR + 8 * (DT - 1));
+            mma_bf16(o[DT - 1], a, b[0], b[1]);
+          }
         }
       }
     }
@@ -528,6 +559,9 @@ cudaError_t by_dim(const void* q, const void* k, const void* v,
                    int Hkv, int hd, int Smax, int ctx_sub, float scale,
                    int device, cudaStream_t st) {
   switch (hd) {
+    case 8:
+      return launch<T, 8>(q, k, v, ctx_lens, out, S, Sq, H, Hkv, Smax,
+                          ctx_sub, scale, device, st);
     case 16:
       return launch<T, 16>(q, k, v, ctx_lens, out, S, Sq, H, Hkv, Smax,
                            ctx_sub, scale, device, st);

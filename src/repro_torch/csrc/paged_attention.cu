@@ -40,9 +40,9 @@
 //  * Each warp stages its pages in shared memory with 16-byte cp.async, in
 //    stages of TP positions (a whole page, or a TP-position slice of a
 //    larger one; TP holds ~STAGE_BYTES = 4 KiB of K and V rows, 8 to 32
-//    positions: 8 at fp32 hd 64 and hd 128, 16 at bf16 hd 64), in a ring
-//    of STAGES = 2: the next stage's copies are issued before the current
-//    one is computed.  Rows at or past the length are zero-filled, not
+//    positions: 8 at fp32 hd 64 and hd 128, 16 at bf16 hd 64, 32 at hd 8),
+//    in a ring of STAGES = 2: the next stage's copies are issued before
+//    the current one is computed.  Rows at or past the length are zero-filled, not
 //    read.  The table entries of a warp's first 32 pages are read once, a
 //    lane each, beside the length.  At ~35 KiB of shared memory per block
 //    (fp32 hd 64) six blocks fit an SM, so 24 warps keep up to ~100 KiB of
@@ -76,7 +76,14 @@
 //    one-page row) returns at once, and a row whose pages all sit in rank
 //    0 skips the cluster barriers.  All of the cluster's blocks derive that
 //    choice from the same length.  No workspace, no second launch.
-//  * The order of every sum depends only on (length, page, hd, G, the
+//  * A block takes at most GROUP = 8 query heads of its kv head.  A larger
+//    G (ChatGLM3-6B's 16) runs ceil(G / GROUP) head groups, each a cluster
+//    of its own on the GM = GROUP instance; the group index only offsets q
+//    and the output, and the groups of one (row, kv head) are neighbours
+//    in the grid, so the second group reads the pages from L2.  A head's
+//    arithmetic does not depend on its place in the group, so its bits do
+//    not depend on which group it sits in.
+//  * The order of every sum depends only on (length, page, hd, GM, the
 //    type), never on B, on maxp beyond the clamp, or on the other rows, so
 //    the verify entry gets the decode row's bits, and the engine's
 //    spec-on = spec-off and exact-stream contracts hold.
@@ -110,12 +117,13 @@ constexpr int THREADS = WARPS * 32;
 constexpr int STAGES = 2;   // cp.async ring depth per warp
 constexpr int STAGE_BYTES = 4096;  // K and V rows a stage aims at
 constexpr int SPLITS = CLUSTER * WARPS;
+constexpr int GROUP = 8;    // most query heads a block takes
 
 template <typename T_, int HD_, int GM_>
 struct Cfg {
   using T = T_;
   static constexpr int HD = HD_;  // head dim
-  static constexpr int GM = GM_;  // largest G = H / Hkv the instance takes
+  static constexpr int GM = GM_;  // query heads per block (G > GM: groups)
   static constexpr int VEC = 16 / sizeof(T);  // values per 16 bytes
   static constexpr int DC = HD / VEC;         // 16-byte columns per row
   // positions per stage: ~STAGE_BYTES of K and V rows, 8..32
@@ -257,10 +265,14 @@ paged_decode_kernel(const typename C::T* __restrict__ q,
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
-  const int unit = blockIdx.x / CLUSTER;
-  const int b = unit / Hkv;
-  const int kvh = unit % Hkv;
   const int G = H / Hkv;
+  const int NG = (G + GM - 1) / GM;  // head groups per (row, kv head)
+  const int unit = blockIdx.x / CLUSTER;
+  const int b = unit / (Hkv * NG);
+  const int kvh = unit % (Hkv * NG) / NG;
+  const int grp = unit % NG;
+  const int h0 = kvh * G + grp * GM;  // the group's first query head
+  const int heads = min(GM, G - grp * GM);  // its live heads
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int len = lengths[b];
@@ -326,11 +338,11 @@ paged_decode_kernel(const typename C::T* __restrict__ q,
     issue(t);
     cp_async_commit();
   }
-  // the group's queries, fp32, zero for heads >= G
+  // the group's queries, fp32, zero past its live heads
   for (int e = threadIdx.x; e < GM * HD; e += THREADS) {
     const int g = e / HD;
-    q_s[e] = g < G ? to_f32(q[((size_t)b * H + kvh * G + g) * HD + e % HD])
-                   : 0.f;
+    q_s[e] = g < heads ? to_f32(q[((size_t)b * H + h0 + g) * HD + e % HD])
+                     : 0.f;
   }
   __syncthreads();
 
@@ -506,12 +518,12 @@ paged_decode_kernel(const typename C::T* __restrict__ q,
 #pragma unroll
     for (int r = 1; r < CLUSTER; ++r)
       st[r] = r < n_ranks ? cluster.map_shared_rank(bs, r) : bs;
-    for (int e = threadIdx.x; e < G * HD; e += THREADS) {
+    for (int e = threadIdx.x; e < heads * HD; e += THREADS) {
       const int g = e / HD;
       float mx;
       const float a = merge<CLUSTER, GM, HD>(st, n_ranks, e, &mx);
       const float lsum = merge<CLUSTER, GM, HD>(st, n_ranks, GM * HD + g, &mx);
-      store(out + ((size_t)b * H + kvh * G) * HD + e, a / fmaxf(lsum, 1e-30f));
+      store(out + ((size_t)b * H + h0) * HD + e, a / fmaxf(lsum, 1e-30f));
     }
   }
   // the ranks' states stay alive until rank 0 has read them
@@ -548,7 +560,8 @@ cudaError_t launch(const Args& a) {
   using T = typename C::T;
   cudaError_t err = set_smem<C>(a.device);
   if (err != cudaSuccess) return err;
-  const long long blocks = (long long)a.B * a.Hkv * CLUSTER;
+  const int groups = (a.H / a.Hkv + C::GM - 1) / C::GM;
+  const long long blocks = (long long)a.B * a.Hkv * groups * CLUSTER;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   if (a.row_seg)
     paged_decode_kernel<C, true><<<(unsigned)blocks, THREADS, C::SMEM,
@@ -565,19 +578,22 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
-// Calls f(Cfg<T, hd, GM>{}) for the instance that takes (dtype, hd, G).
+// Calls f(Cfg<T, hd, GM>{}) for the instance that takes (dtype, hd, G):
+// G > GROUP runs in head groups of GROUP.
 template <typename T, int HD, typename F>
 cudaError_t by_group(int G, F&& f) {
+  static_assert(GROUP == 8, "instances below");
   if (G <= 1) return f(Cfg<T, HD, 1>{});
   if (G <= 2) return f(Cfg<T, HD, 2>{});
   if (G <= 4) return f(Cfg<T, HD, 4>{});
-  if (G <= 8) return f(Cfg<T, HD, 8>{});
-  return cudaErrorInvalidValue;
+  return f(Cfg<T, HD, 8>{});
 }
 
 template <typename T, typename F>
 cudaError_t by_dim(int hd, int G, F&& f) {
   switch (hd) {
+    case 8:
+      return by_group<T, 8>(G, f);
     case 16:
       return by_group<T, 16>(G, f);
     case 32:
@@ -616,7 +632,7 @@ cudaError_t run(int dtype, const Args& a, int hd) {
 // dtype: 0 = float32, 1 = bfloat16 (q, pages and out share it).
 // Shapes: q (B, H, hd); k/v pages (P, page, Hkv, hd); tables (B, maxp)
 // int32; lengths (B,) int32; out (B, H, hd).  All contiguous, the pages
-// 16-byte aligned; hd in {16, 32, 64, 128}, H / Hkv <= 8.
+// 16-byte aligned; hd in {8, 16, 32, 64, 128}, H a multiple of Hkv.
 extern "C" int proserve_paged_decode(int dtype, const void* q, const void* k,
                                      const void* v, const void* tables,
                                      const void* lengths, void* out, int B,
@@ -647,10 +663,10 @@ extern "C" int proserve_packed_verify(int dtype, const void* q,
 }
 
 // The launch shape of the instance that takes (dtype, hd, G) on a device:
-// out[0..6] = blocks per cluster, warps per block, cp.async stages per
+// out[0..7] = blocks per cluster, warps per block, cp.async stages per
 // warp, positions per stage, dynamic shared memory per block (bytes),
-// resident blocks per SM and resident clusters on the device (-1 where
-// the occupancy query fails).
+// resident blocks per SM, resident clusters on the device (-1 where
+// the occupancy query fails) and head groups per (row, kv head).
 extern "C" int proserve_paged_decode_info(int dtype, int hd, int G,
                                           int device, void* out) {
   cudaError_t err = cudaSetDevice(device);
@@ -680,6 +696,7 @@ extern "C" int proserve_paged_decode_info(int dtype, int hd, int G,
             &nc, reinterpret_cast<const void*>(paged_decode_kernel<C, false>), &lc) != cudaSuccess)
       nc = -1;
     o[6] = nc;
+    o[7] = (G + C::GM - 1) / C::GM;
     cudaGetLastError();  // a failed occupancy query leaves no error behind
     return cudaSuccess;
   });

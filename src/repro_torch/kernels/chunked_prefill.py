@@ -22,9 +22,7 @@ import math
 import torch
 
 from . import build
-from .paged_attention import DTYPES, check_tensor, device_index
-
-HEAD_DIMS = (16, 32, 64, 128)   # instantiated in packed_prefill.cu
+from .paged_attention import DTYPES, HEAD_DIMS, check_tensor, device_index
 
 
 def _launch(wrapper, entry: str, q, k_cache, v_cache, lens, lens_name):

@@ -16,8 +16,9 @@ import torch
 from . import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_GROUP = 8        # query heads per kv head the kernel instantiates
-HEAD_DIMS = (16, 32, 64, 128)   # instantiated in paged_attention.cu
+# head dims that paged_attention.cu and packed_prefill.cu instantiate:
+# every head_dim of a config in ``configs/`` (any G = H / Hkv is taken)
+HEAD_DIMS = (8, 16, 32, 64, 128)
 
 
 def check_tensor(name: str, t: torch.Tensor, device: torch.device,
@@ -39,8 +40,9 @@ def device_index(dev: torch.device) -> int:
 def check_paged(q, k_pages, v_pages, block_tables, lengths) -> None:
     """The checks both entries of ``csrc/paged_attention.cu`` share: q
     (rows, H, hd) and the (P, page, Hkv, hd) pages of one CUDA device and
-    dtype, contiguous, the pages 16-byte aligned (the kernel copies their
-    rows in 16-byte pieces); int32 tables and lengths there too."""
+    dtype, contiguous, H a multiple of Hkv, head_dim in ``HEAD_DIMS``, the
+    pages 16-byte aligned (the kernel copies their rows in 16-byte
+    pieces); int32 tables and lengths there too."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
@@ -56,9 +58,8 @@ def check_paged(q, k_pages, v_pages, block_tables, lengths) -> None:
     if v_pages.shape != k_pages.shape or hd_k != hd:
         raise ValueError(f"page shapes {tuple(k_pages.shape)} / "
                          f"{tuple(v_pages.shape)} do not match q {q.shape}")
-    if h % hkv or h // hkv > MAX_GROUP:
-        raise ValueError(f"H={h}, Hkv={hkv}: need H % Hkv == 0 and "
-                         f"H / Hkv <= {MAX_GROUP}")
+    if h % hkv:
+        raise ValueError(f"H={h} is not a multiple of Hkv={hkv}")
     if hd not in HEAD_DIMS or page < 1:
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS} or page {page} "
                          f"< 1")
@@ -96,12 +97,13 @@ def launch_shape(dtype: torch.dtype, hd: int, group: int,
     """How the kernel instance for (dtype, head_dim, G) launches on
     ``device``: blocks per cluster, warps per block, cp.async stages per
     warp, positions per stage, dynamic shared memory per block, resident
-    blocks per SM and resident clusters (-1 where the occupancy query
-    fails).  Launches nothing."""
-    out = (ctypes.c_int * 7)()
+    blocks per SM, resident clusters (-1 where the occupancy query fails)
+    and head groups per (row, kv head): a G above 8 runs in groups of 8
+    query heads, each its own cluster.  Launches nothing."""
+    out = (ctypes.c_int * 8)()
     err = build.library().proserve_paged_decode_info(
         DTYPES[dtype], hd, group, device_index(device), ctypes.addressof(out))
     build.check(err, "paged_decode_attention launch_shape")
     keys = ("cluster", "warps", "stages", "positions_per_stage",
-            "smem_bytes", "blocks_per_sm", "clusters")
+            "smem_bytes", "blocks_per_sm", "clusters", "head_groups")
     return dict(zip(keys, out))

@@ -54,6 +54,13 @@ def prefill_inputs(dev, dtype, s, sq, smax, h, hkv, hd, ctx, seed=0):
     return [t.to(dev) for t in (q, kc, vc, cl)]
 
 
+def named(cases: list, extra: dict) -> dict:
+    """parametrize() arguments: ``cases`` under their ids so far (case0,
+    case1, ...), then ``extra`` under its keys."""
+    return dict(argvalues=cases + list(extra.values()),
+                ids=[f"case{i}" for i in range(len(cases))] + list(extra))
+
+
 DECODE_CASES = [
     # b, h, hkv, hd, page, maxp, lens
     (16, 16, 16, 64, 16, 12, [1, 16, 17, 191, 192, 100, 5, 33,
@@ -75,10 +82,21 @@ DECODE_CASES = [
     # page 12: a page is not a whole number of 8-position stages
     (6, 4, 4, 64, 12, 20, [1, 8, 12, 13, 100, 240]),
 ]
+# G > 8 runs in head groups of 8; head_dim 8 (the dense SMOKE configs)
+DECODE_NEW = {
+    "glm_g16_hd128": (16, 32, 2, 128, 16, 48,
+                      [0, 1, 15, 16, 17, 64, 65, 127, 128, 129, 255, 256,
+                       257, 511, 767, 768]),           # ChatGLM3-6B widths
+    "g12_hd64": (5, 24, 2, 64, 16, 12, [1, 40, 100, 150, 192]),   # 8 + 4
+    "hd8": (16, 8, 2, 8, 16, 64, [0, 1, 15, 16, 17, 31, 32, 33, 63, 64,
+                                  65, 255, 256, 257, 512, 1024]),
+    "hd8_mha_page8": (4, 4, 4, 8, 8, 10, [1, 33, 64, 80]),
+}
+DECODE = named(DECODE_CASES, DECODE_NEW)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", DECODE_CASES)
+@pytest.mark.parametrize("case", **DECODE)
 def test_paged_decode_matches_plain(cuda, dtype, case):
     b, h, hkv, hd, page, maxp, lens = case
     args = decode_inputs(cuda, dtype, b, h, hkv, hd, page, maxp, lens)
@@ -94,7 +112,7 @@ def test_paged_decode_matches_plain(cuda, dtype, case):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", DECODE_CASES)
+@pytest.mark.parametrize("case", **DECODE)
 def test_paged_decode_row_does_not_depend_on_the_batch(cuda, dtype, case):
     """The split points depend on a row's length only and the merge order
     is fixed: each row launched alone gives the bits it has in the batch."""
@@ -107,6 +125,23 @@ def test_paged_decode_row_does_not_depend_on_the_batch(cuda, dtype, case):
                                      ln[i:i + 1])
         torch.cuda.synchronize()
         assert torch.equal(one[0], out[i])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_glm_head_group_does_not_change_a_heads_bits(cuda, dtype):
+    """At G 16 (two head groups of 8 per kv head) a query head gives the
+    same bits in either group: swapping the groups' queries swaps the
+    output's heads, bitwise."""
+    b, h, hkv, hd, page, maxp, lens = DECODE_NEW["glm_g16_hd128"]
+    q, kp, vp, bt, ln = decode_inputs(cuda, dtype, b, h, hkv, hd, page, maxp,
+                                      lens)
+    g = h // hkv
+    perm = torch.arange(h).reshape(hkv, 2, g // 2).flip(1).reshape(-1)
+    perm = perm.to(cuda)
+    out = paged_decode_attention(q, kp, vp, bt, ln)
+    swapped = paged_decode_attention(q[:, perm].contiguous(), kp, vp, bt, ln)
+    torch.cuda.synchronize()
+    assert torch.equal(swapped, out[:, perm])
 
 
 PREFILL_CASES = [
@@ -127,10 +162,15 @@ PREFILL_CASES = [
     (2, 64, 150, 4, 4, 128, [0, 86]),                   # hd 128, Smax 150
     (1, 1024, 1024, 16, 16, 64, [0]),                   # the max_ctx bucket
 ]
+PREFILL_NEW = {
+    "glm_hd128": (4, 256, 512, 32, 2, 128, [0, 256, 100, 64]),    # G 16
+    "hd8": (3, 64, 192, 8, 2, 8, [0, 128, 61]),
+    "hd8_sq100_g2": (2, 100, 256, 6, 3, 8, [0, 156]),
+}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", PREFILL_CASES)
+@pytest.mark.parametrize("case", **named(PREFILL_CASES, PREFILL_NEW))
 def test_packed_prefill_matches_plain(cuda, dtype, case):
     s, sq, smax, h, hkv, hd, ctx = case
     args = prefill_inputs(cuda, dtype, s, sq, smax, h, hkv, hd, ctx)
@@ -157,10 +197,14 @@ CHUNKED_CASES = [
     (2, 64, 160, 28, 4, 128, [160, 90]),                # G 7, hd 128
     (1, 1024, 1024, 16, 16, 64, [1024]),                # the max_ctx bucket
 ]
+CHUNKED_NEW = {
+    "glm_hd128": (2, 64, 192, 32, 2, 128, [64, 150]),
+    "hd8": (2, 40, 100, 8, 2, 8, [40, 100]),
+}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", CHUNKED_CASES)
+@pytest.mark.parametrize("case", **named(CHUNKED_CASES, CHUNKED_NEW))
 def test_chunked_prefill_matches_plain(cuda, dtype, case):
     b, sq, smax, h, hkv, hd, lens = case
     args = prefill_inputs(cuda, dtype, b, sq, smax, h, hkv, hd, lens)
@@ -192,10 +236,11 @@ NEGATIVE_CASES = [
     (2, 100, 256, 8, 2, 64, [37, 100]),
     (2, 40, 128, 28, 4, 128, [9, 40]),
 ]
+NEGATIVE_NEW = {"hd8": (2, 40, 128, 8, 2, 8, [9, 40])}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", NEGATIVE_CASES)
+@pytest.mark.parametrize("case", **named(NEGATIVE_CASES, NEGATIVE_NEW))
 def test_chunked_prefill_rows_before_position_zero_at_the_tiling_edges(
         cuda, dtype, case):
     """As above, at widths where a 16-row MMA tile holds rows on both
@@ -212,15 +257,23 @@ def test_chunked_prefill_rows_before_position_zero_at_the_tiling_edges(
                                    want[i, neg:].float(), **tol(dtype))
 
 
+def as_packs(cases):
+    """Chunked cases as packs at ctx_lens = cache_lens - Sq."""
+    return [(b, sq, smax, h, hkv, hd, [n - sq for n in lens])
+            for b, sq, smax, h, hkv, hd, lens in cases]
+
+
 # every packed case, and the chunked and negative-position cases as packs
-# at ctx_lens = cache_lens - Sq
-BITWISE_CASES = PREFILL_CASES + [
-    (b, sq, smax, h, hkv, hd, [n - sq for n in lens])
-    for b, sq, smax, h, hkv, hd, lens in CHUNKED_CASES + NEGATIVE_CASES]
+BITWISE_CASES = PREFILL_CASES + as_packs(CHUNKED_CASES + NEGATIVE_CASES)
+BITWISE_NEW = {**PREFILL_NEW, **{
+    f"chunked_{k}": c for k, c in zip(CHUNKED_NEW, as_packs(
+        list(CHUNKED_NEW.values())))}, **{
+    f"negative_{k}": c for k, c in zip(NEGATIVE_NEW, as_packs(
+        list(NEGATIVE_NEW.values())))}}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", BITWISE_CASES)
+@pytest.mark.parametrize("case", **named(BITWISE_CASES, BITWISE_NEW))
 def test_chunked_is_packed_per_segment_bitwise(cuda, dtype, case):
     """The JAX contract on the card: per segment, the packed kernel is the
     chunked kernel run alone at cache_lens = ctx_lens + Sq, bit for bit."""
@@ -289,10 +342,16 @@ VERIFY_CASES = [
     # 255..257 (16 pages, every split), 1021..1023 (the 64-page table)
     (4, 2, 16, 16, 64, 16, 64, [62, 254, 1020, 5]),
 ]
+VERIFY_NEW = {
+    "glm_g16_hd128": (16, 2, 32, 2, 128, 16, 48,
+                      [1, 15, 16, 30, 64, 100, 200, 333, 400, 500, 511, 512,
+                       513, 600, 700, 760]),
+    "hd8": (4, 2, 8, 2, 8, 16, 64, [62, 254, 1020, 5]),
+}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", VERIFY_CASES)
+@pytest.mark.parametrize("case", **named(VERIFY_CASES, VERIFY_NEW))
 def test_packed_verify_matches_plain_and_decode_bitwise(cuda, dtype, case):
     (q, kp, vp, bt, ln), seg = verify_inputs(cuda, dtype, *case)
     out = packed_verify_attention(q, kp, vp, bt, ln, seg)
@@ -313,7 +372,7 @@ def test_packed_verify_matches_plain_and_decode_bitwise(cuda, dtype, case):
 def test_paged_wrappers_refuse_pages_off_16_bytes(cuda):
     """The decode / verify kernel copies K/V rows in 16-byte pieces: pages
     that start 4 bytes into their storage, or a head_dim it does not
-    instantiate, are refused before any launch."""
+    instantiate (24: no config has it), are refused before any launch."""
     q, kp, vp, bt, ln = decode_inputs(cuda, torch.float32, *DECODE_CASES[2])
     seg = torch.zeros(q.shape[0], dtype=torch.int32)
     d0 = paged_decode_attention.launches
@@ -328,9 +387,8 @@ def test_paged_wrappers_refuse_pages_off_16_bytes(cuda):
         with pytest.raises(ValueError):
             packed_verify_attention(q, *pages, bt, ln, seg)
     with pytest.raises(ValueError):
-        paged_decode_attention(q[..., :8].contiguous(),
-                               kp[..., :8].contiguous(),
-                               vp[..., :8].contiguous(), bt, ln)
+        paged_decode_attention(*(torch.cat([t, t[..., :8]], -1)
+                                 for t in (q, kp, vp)), bt, ln)
     assert paged_decode_attention.launches == d0
     assert packed_verify_attention.launches == v0
 
@@ -378,10 +436,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     p0 = packed_prefill_attention.launches
     with pytest.raises(ValueError):
         packed_prefill_attention(q2, kc[:1], vc[:1], cl)
-    with pytest.raises(ValueError):
-        packed_prefill_attention(q2[..., :8].contiguous(),
-                                 kc[..., :8].contiguous(),
-                                 vc[..., :8].contiguous(), cl)
+    with pytest.raises(ValueError):       # head_dim 24: no config has it
+        packed_prefill_attention(*(torch.cat([t, t[..., :8]], -1)
+                                   for t in (q2, kc, vc)), cl)
     with pytest.raises(TypeError):
         packed_prefill_attention(q2.half(), kc.half(), vc.half(), cl)
     assert paged_decode_attention.launches == n0
@@ -447,11 +504,48 @@ def test_engine_on_card_matches_greedy_forward(cuda):
             cfg, params, prompt, r.output_len)
 
 
+def test_glm_engine_on_card_matches_greedy_forward(cuda):
+    """ChatGLM3-6B at its full width (H 32 / Hkv 2, so G 16, head_dim 128,
+    d_model 4096, vocab 65024, half-rotary RoPE, QKV bias) cut to two
+    layers, smoke traffic: every stream equals greedy decoding by the
+    port's forward, each attention kernel launched once per layer per
+    engine launch."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.launch import serve
+    from repro_torch.models.model import greedy_generate, init_params
+
+    cfg = dataclasses.replace(get("chatglm3_6b"), n_layers=2)
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                         device=cuda)
+    ops.reset_launch_counts()
+    res = serve.serve(cfg, params, serve.SMOKE, device=cuda)
+    counts = ops.launch_counts()
+    st = res.engine.stats
+    assert counts["paged_decode_attention"] == cfg.n_layers * \
+        st.decode_launches > 0
+    assert counts["packed_prefill_attention"] == cfg.n_layers * \
+        st.packed_prefill_calls > 0
+    for r, prompt in res.requests:
+        assert res.engine.outputs[r.rid] == greedy_generate(
+            cfg, params, prompt, r.output_len)
+    res.engine.kill()
+
+
 QUANT_CASES = [
     (8, 24, 16, 16, 64),      # one demoted Qwen1.5-0.5B group
     (3, 2, 4, 2, 16),         # smoke widths
     (2, 3, 3, 1, 5),          # rows of 15 values: the scalar path
 ]
+QUANT_NEW = {
+    "glm": (8, 28, 16, 2, 128),          # ChatGLM3-6B: one block per row
+    # 131072 values a row: more slices than the cluster's 8 blocks (fp32
+    # 32 slices, bf16 16), so each block loops over its slices
+    "multi_slice": (2, 2, 32, 32, 128),
+    "ragged_slice": (2, 3, 16, 3, 200),  # 9600 values: a partial last slice
+    "narrow_rows": (2, 2, 3, 1, 8),      # 24 values: no 16-byte int8 store
+}
 
 
 def quant_blocks(dev, dtype, n, lyr, bs, hkv, hd, seed=0):
@@ -467,7 +561,7 @@ def quant_blocks(dev, dtype, n, lyr, bs, hkv, hd, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", QUANT_CASES)
+@pytest.mark.parametrize("case", **named(QUANT_CASES, QUANT_NEW))
 def test_kv_quant_bitwise_equals_plain(cuda, dtype, case):
     x = quant_blocks(cuda, dtype, *case)
     vals, scales = kv_block_quantize(x)

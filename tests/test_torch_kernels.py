@@ -3,6 +3,7 @@ package on the ``tests/test_kernels.py`` and ``tests/test_spec_decode.py``
 sweeps: the Pallas kernels in interpret mode (``repro.kernels.ops``) and
 the ``ref.py`` oracles, fp32 at 2e-5 and bf16 at 2e-2.  The port's
 dispatch sends CPU tensors to these plain versions."""
+import itertools
 import math
 
 import jax.numpy as jnp
@@ -47,6 +48,8 @@ def f32(x):
     (3, 8, 2, 64, 16, 5),      # GQA G=4
     (1, 16, 2, 16, 8, 8),      # G=8, small pages
     (4, 6, 6, 128, 32, 2),     # head_dim 128
+    (2, 32, 2, 128, 16, 3),    # ChatGLM3-6B: G=16, head_dim 128
+    (3, 8, 2, 8, 16, 4),       # head_dim 8 (the dense SMOKE configs)
 ])
 def test_paged_decode_plain_matches_jax(dtype, b, h, hkv, hd, page, maxp):
     rng = np.random.default_rng(b * 100 + h)
@@ -70,6 +73,8 @@ def test_paged_decode_plain_matches_jax(dtype, b, h, hkv, hd, page, maxp):
     (2, 8, 64, 4, 2, 32, 16),
     (1, 16, 128, 8, 8, 16, 32),
     (3, 4, 40, 6, 2, 64, 16),   # smax not a multiple of kvb
+    (2, 8, 64, 32, 2, 128, 16),  # ChatGLM3-6B: G=16, head_dim 128
+    (2, 8, 48, 8, 2, 8, 16),    # head_dim 8
 ])
 def test_packed_prefill_plain_matches_jax(dtype, s, sq, smax, h, hkv, hd,
                                           kvb):
@@ -175,6 +180,8 @@ def verify_case(rng, n_seg, depth, page, hkv, g, hd, n_pages, maxp, base):
     (3, 2, 8, 2, 4, 16, 24, 3, [9, 14, 20]),        # test_spec_decode.py
     (4, 1, 16, 4, 1, 64, 20, 4, [0, 15, 16, 47]),   # MHA, block edges
     (2, 3, 16, 2, 7, 128, 12, 5, [60, 3]),          # Qwen2-7B's G = 7
+    (2, 2, 16, 2, 16, 128, 12, 4, [20, 40]),        # ChatGLM3-6B's G = 16
+    (3, 2, 8, 2, 4, 8, 24, 3, [9, 14, 20]),         # head_dim 8
 ])
 def test_packed_verify_plain_matches_jax(dtype, n_seg, depth, page, hkv, g,
                                          hd, n_pages, maxp, base):
@@ -457,12 +464,12 @@ NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 
 
-def cu_constant(name):
-    """A ``constexpr int`` of ``csrc/paged_attention.cu``."""
+def cu_constant(name, source="paged_attention.cu"):
+    """A ``constexpr int`` of ``csrc/<source>``."""
     import re
 
     from repro_torch.kernels import build
-    src = (build.CSRC / "paged_attention.cu").read_text()
+    src = (build.CSRC / source).read_text()
     return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
 
@@ -493,12 +500,14 @@ def merge_states(states, g, hd):
 
 
 def split_decode(q, kp, vp, tables, lengths, row_seg=None, itemsize=4):
-    """The kernel's schedule for every (row, kv head): page i goes to block
-    rank i % CLUSTER and warp (i // CLUSTER) % WARPS; each warp walks its
-    pages in TP-position stages with an fp32 online softmax in log2 units
-    (scores scaled, then masked); the warps with pages merge in order,
-    then the ranks with pages."""
+    """The kernel's schedule for every (row, kv head, head group of at
+    most GROUP query heads): page i goes to block rank i % CLUSTER and
+    warp (i // CLUSTER) % WARPS; each warp walks its pages in TP-position
+    stages with an fp32 online softmax in log2 units (scores scaled, then
+    masked); the warps with pages merge in order, then the ranks with
+    pages."""
     cl, warps = cu_constant("CLUSTER"), cu_constant("WARPS")
+    group = cu_constant("GROUP")
     rows, h, hd = q.shape
     page, hkv = kp.shape[1], kp.shape[2]
     g = h // hkv
@@ -512,15 +521,17 @@ def split_decode(q, kp, vp, tables, lengths, row_seg=None, itemsize=4):
         trow = tables[int(row_seg[b]) if row_seg is not None else b]
         ln = int(lengths[b])
         n_pages = min(-(-ln // page), maxp) if ln > 0 else 0
-        for kvh in range(hkv):
-            qg = q[b, kvh * g:(kvh + 1) * g].float()
+        for kvh, h0 in itertools.product(range(hkv), range(0, g, group)):
+            heads = slice(kvh * g + h0, kvh * g + min(g, h0 + group))
+            qg = q[b, heads].float()
+            gl = qg.shape[0]
             blocks = []
             for rank in range(cl):
                 states = []
                 for w in range(warps):
-                    m = torch.full((g,), NEG_INF, dtype=torch.float32)
-                    l_ = torch.zeros(g)
-                    acc = torch.zeros(g, hd)
+                    m = torch.full((gl,), NEG_INF, dtype=torch.float32)
+                    l_ = torch.zeros(gl)
+                    acc = torch.zeros(gl, hd)
                     for i in range(w * cl + rank, n_pages, cl * warps):
                         for j0 in range(0, page, tp):
                             pos0 = i * page + j0
@@ -541,10 +552,9 @@ def split_decode(q, kp, vp, tables, lengths, row_seg=None, itemsize=4):
                     if w * cl + rank < n_pages:
                         states.append((m, l_, acc))
                 if rank < n_pages:
-                    blocks.append(merge_states(states, g, hd))
-            _, l_sum, acc = merge_states(blocks, g, hd)
-            out[b, kvh * g:(kvh + 1) * g] = \
-                acc / torch.clamp(l_sum, min=1e-30)[:, None]
+                    blocks.append(merge_states(states, gl, hd))
+            _, l_sum, acc = merge_states(blocks, gl, hd)
+            out[b, heads] = acc / torch.clamp(l_sum, min=1e-30)[:, None]
     return out.to(q.dtype)
 
 
@@ -562,12 +572,13 @@ def split_lengths(page, tp, maxp):
 
 
 @pytest.mark.parametrize("page", [8, 16, 32])
-@pytest.mark.parametrize("hd", [64, 128])
-@pytest.mark.parametrize("g", [1, 7, 8])
+@pytest.mark.parametrize("hd", [64, 128, 8])
+@pytest.mark.parametrize("g", [1, 7, 8, 16])
 def test_decode_split_schedule_matches_plain(g, hd, page):
     """The emulated split/merge schedule equals the plain version at fp32
-    2e-5 at every split edge; a length-0 row writes 0 (every split empty),
-    where the plain version's softmax over masked scores is not defined."""
+    2e-5 at every split edge, G 16 in two head groups of 8 included; a
+    length-0 row writes 0 (every split empty), where the plain version's
+    softmax over masked scores is not defined."""
     hkv = 2
     maxp = cu_constant("CLUSTER") * cu_constant("WARPS") + 3
     lens = split_lengths(page, stage_positions(hd, 4), maxp)
@@ -615,3 +626,62 @@ def test_decode_split_verify_row_is_decode_row_bitwise(base, itemsize):
     want = tref.packed_verify_attention_ref(q, kp, vp, tables, lengths,
                                             row_seg)
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+# --------------------------------------------------------------------------
+# The schedule of the int8 quantize kernel (csrc/kv_quant.cu), emulated in
+# plain PyTorch: each plane row in slices, slice s to block rank s % C of a
+# cluster, each rank's absmax over its slices, the ranks' maxima merged.
+# --------------------------------------------------------------------------
+
+def split_quantize(blocks, c, slice_values):
+    """``kv_block_quantize`` on the cluster schedule: rank r of ``c``
+    reduces the absmax of slices r, r + c, ... of ``slice_values`` values
+    (0 where it has none), the ranks' maxima are merged in rank order, and
+    scale, inverse and values follow from the merged max with the kernel's
+    expressions (the fp32 constant 1/127, an IEEE 1 / scale, round half to
+    even)."""
+    n, lyr, two = blocks.shape[:3]
+    x = blocks.reshape(n * lyr * two, -1).float()
+    n_slices = -(-x.shape[1] // slice_values)
+    amax = torch.zeros(x.shape[0])
+    for rank in range(c):
+        m = torch.zeros(x.shape[0])
+        for sl in range(rank, n_slices, c):
+            part = x[:, sl * slice_values:(sl + 1) * slice_values]
+            m = torch.maximum(m, part.abs().amax(dim=1))
+        amax = torch.maximum(amax, m)
+    scale = amax * torch.tensor(np.float32(1.0 / 127.0))
+    inv = torch.where(scale > 0, 1.0 / scale, torch.zeros(()))
+    vals = torch.clamp(torch.round(x * inv[:, None]), -127, 127)
+    return (vals.to(torch.int8).reshape(blocks.shape),
+            scale.reshape(n, lyr, two))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("plane", [(16, 2, 128), (16, 16, 64), (1, 1, 4102)],
+                         ids=["E4096_glm", "E16384_qwen1.5", "E4102"])
+@pytest.mark.parametrize("c", [1, 2, 4, 8])
+def test_quantize_split_schedule_is_the_plain_version_bitwise(c, plane,
+                                                              dtype):
+    """The emulated cluster schedule of ``kv_block_quantize`` is bitwise
+    ``kv_block_quantize_ref`` for clusters of 1-8 blocks, with the kernel's
+    slice (THREADS x NV 16-byte vectors of this dtype) and with slices of
+    about E / 2C values (two or more slices per rank, a partial last one),
+    on rows with a zero plane and one of exact half steps."""
+    rng = np.random.default_rng(c)
+    x = torch.as_tensor(rng.standard_normal((2, 3, 2, *plane)) * 3,
+                        dtype=torch.float32)
+    x[0, 0, 1] = 0.0                                     # a zero plane
+    e = int(np.prod(plane))
+    half = torch.arange(e, dtype=torch.float32) % 254 - 126.5
+    half[0] = 127.0                                      # scale 1
+    x[-1, -1, 0] = half.reshape(plane)                   # half steps
+    x = x.to(dtype)
+    per_vector = 16 // x.element_size()
+    kernel_slice = (cu_constant("THREADS", "kv_quant.cu")
+                    * cu_constant("NV", "kv_quant.cu") * per_vector)
+    want_v, want_s = tref.kv_block_quantize_ref(x)
+    for slice_values in (kernel_slice, -(-e // (2 * c))):
+        vals, scales = split_quantize(x, c, slice_values)
+        assert torch.equal(vals, want_v) and torch.equal(scales, want_s)

@@ -87,7 +87,12 @@ def test_dense_attention(h, hkv, window):
               JL.dense_attention(*map(jnp.asarray, (q, k, v)), **jkw))
 
 
-@pytest.mark.parametrize("arch", ["qwen1_5_0_5b", "qwen2_7b"])
+# the dense configs whose SMOKE variants have head_dim 8
+HD8_DENSE = ["chameleon_34b", "chatglm3_6b", "deepseek_coder_33b",
+             "phi4_mini_3_8b", "qwen3_32b"]
+
+
+@pytest.mark.parametrize("arch", ["qwen1_5_0_5b", "qwen2_7b"] + HD8_DENSE)
 def test_forward_logits_match_jax(arch):
     cfg = get_smoke(arch)
     tree = perturbed_numpy_params(cfg)

@@ -18,6 +18,10 @@ from _torch_port_util import jax_tree, perturbed_numpy_params
 
 BS = 16
 NUM_BLOCKS = 24
+# Qwen1.5-0.5B and Qwen2-7B, then the dense configs whose SMOKE variants
+# have head_dim 8
+ARCHS = ["qwen1_5_0_5b", "qwen2_7b", "chameleon_34b", "chatglm3_6b",
+         "deepseek_coder_33b", "phi4_mini_3_8b", "qwen3_32b"]
 
 
 def setup(arch, seed):
@@ -36,7 +40,7 @@ def assert_pools_close(got, want):
                                rtol=1e-5)
 
 
-@pytest.mark.parametrize("arch", ["qwen1_5_0_5b", "qwen2_7b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_decode_step_matches_jax(arch):
     cfg, tcfg, jparams, tparams, pool, rng = setup(arch, 1)
     # three live requests padded to seg_bucket(3) = 4 rows; the pad row
@@ -66,7 +70,7 @@ def test_decode_step_matches_jax(arch):
     assert not np.allclose(t_pool[:, :, 0, 0].numpy(), pool[:, :, 0, 0])
 
 
-@pytest.mark.parametrize("arch", ["qwen1_5_0_5b", "qwen2_7b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_decode_batch_matches_jax(arch):
     """The logits decode (the engine's ``fused_decode=False`` path): the
     exact batch, no padding, (B, V) logits."""
@@ -110,7 +114,7 @@ def verify_inputs(cfg, rng, segs):
     return tokens, tables, lens, row_seg, n_rows
 
 
-@pytest.mark.parametrize("arch", ["qwen1_5_0_5b", "qwen2_7b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_verify_step_matches_jax(arch):
     cfg, tcfg, jparams, tparams, pool, rng = setup(arch, 4)
     # depths 2, 0, 1 (one request runs plain), a block edge crossed by the
@@ -131,7 +135,7 @@ def test_verify_step_matches_jax(arch):
     assert_pools_close(got_pool, want_pool)
 
 
-@pytest.mark.parametrize("arch", ["qwen1_5_0_5b", "qwen2_7b"])
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("ctx,n,table", [
     (0, 20, [6, 2]),            # a fresh prompt: 20 tokens padded to 32
     (37, 9, [8, 2, 13]),        # a chunk after 37 cached tokens
@@ -213,7 +217,7 @@ def packed_inputs(cfg, rng, segs):
     return arrays, smax, sq
 
 
-@pytest.mark.parametrize("arch", ["qwen1_5_0_5b", "qwen2_7b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_packed_matches_jax(arch):
     cfg, tcfg, jparams, tparams, pool, rng = setup(arch, 2)
     # a fresh prompt, a chunk after a cached prefix, and a short tail

@@ -49,19 +49,26 @@ VARIANTS = {
 }
 
 
-def compile_variants(names) -> dict:
+def variant_text(src: str, subs: dict, name: str) -> str:
+    """``src`` with each ``constexpr int KEY = ...;`` set to ``subs[KEY]``."""
+    for key, val in subs.items():
+        src, n = re.subn(rf"constexpr int {key} = \d+;",
+                         f"constexpr int {key} = {val};", src)
+        if n != 1:
+            raise SystemExit(f"{name}: no constant {key}")
+    return src
+
+
+def compile_sources(texts: dict) -> dict:
+    """Each source text of ``texts`` (name -> CUDA source) compiled by nvcc
+    for sm_90a into its own library under ``build/variants/``, all in
+    parallel; prints each one's registers and spills; returns name ->
+    loaded library with the port's C signatures set."""
     from repro_torch.kernels import build
-    src = (build.CSRC / "paged_attention.cu").read_text()
     out = build.BUILD_DIR.parent / "variants"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in names:
-        text = src
-        for key, val in VARIANTS[name].items():
-            text, n = re.subn(rf"constexpr int {key} = \d+;",
-                              f"constexpr int {key} = {val};", text)
-            if n != 1:
-                raise SystemExit(f"{name}: no constant {key}")
+    for name, text in texts.items():
         cu = out / f"{name}.cu"
         cu.write_text(text)
         procs[name] = subprocess.Popen(
@@ -85,6 +92,13 @@ def compile_variants(names) -> dict:
                 getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
     return libs
+
+
+def compile_variants(names) -> dict:
+    from repro_torch.kernels import build
+    src = (build.CSRC / "paged_attention.cu").read_text()
+    return compile_sources({name: variant_text(src, VARIANTS[name], name)
+                            for name in names})
 
 
 def call(lib, q, kp, vp, bt, ln, seg=None):
