@@ -89,6 +89,28 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                cut) on the serve traffic: evictions, exact streams, the
                serve phase's launch-count and host-sync gates; its wall,
                peak memory and launches printed.
+  9. disagg  — ``serve --pd disagg`` at Qwen1.5-0.5B's full width on the
+               serve traffic: a ``ServiceController`` with GoRouting over
+               prefill- and decode-role engines sharing one params dict,
+               each request's KV handed over through host memory.  (a) 1
+               prefill + 1 decode replica, fp32 wire: every stream equals
+               greedy forward; exports = adoptions = the book's handoffs
+               = the requests with more than one output token; wire bytes
+               = blocks x block bytes; every reservation settled (reserved
+               = adopted when none missed); block_gather launched at least
+               once per export; no export state, reservation, used block
+               or request host-tier group left.  (b) ``--handoff-int8`` on
+               1 prefill + 2 decode replicas (so the decode leg never
+               evicts and recomputes), twice: identical streams and wire
+               bytes, a narrower wire, kv_block_quantize launched once per
+               export and kv_block_dequantize once per adoption, every
+               quantized plane within scale / 2; the streams equal to
+               greedy are printed, not gated.  (c) prefill + decode +
+               coloc, the decode replica killed after its first adoption:
+               every stream equals greedy forward, each token emitted
+               once.  Each pass under the serve phase's launch-count and
+               host-sync gates; walls, TTFT / TPOT, handoff blocks, bytes
+               and copy time, reservations and peak memory printed.
 
 fp32 matmuls run in full fp32: TF32 is switched off for cuBLAS and cuDNN.
 The last two lines are the ``{"kernels": ...}`` JSON and the
@@ -96,6 +118,7 @@ The last two lines are the ``{"kernels": ...}`` JSON and the
 """
 from __future__ import annotations
 
+import gc
 import json
 import re
 import subprocess
@@ -824,10 +847,10 @@ def check_streams(res, label: str) -> None:
     (one greedy run per distinct prompt)."""
     from repro_torch.models.model import forward
 
-    cfg, params, eng = res.cfg, res.params, res.engine
+    cfg, params, outputs = res.cfg, res.params, res.outputs
     t0 = time.monotonic()
     for r, prompt in res.requests:
-        got = eng.outputs[r.rid]
+        got = outputs[r.rid]
         key = (cfg.name, prompt.tobytes(), r.output_len)
         if key in _GREEDY:
             if got != _GREEDY[key]:
@@ -835,7 +858,7 @@ def check_streams(res, label: str) -> None:
                      "greedy forward")
             continue
         cur = torch.as_tensor(prompt, dtype=torch.long,
-                              device=res.engine.device)[None]
+                              device=params["embed"].device)[None]
         for pos in range(r.output_len):
             logits = forward(cfg, params, cur, last_only=True)[0, -1]
             want = int(logits.argmax())
@@ -860,47 +883,53 @@ def check_launches(res, counts: dict, label: str) -> None:
     the tier store and the transfer worker called it; one host sync per
     sampling launch: target decode launches, packed prefill calls, draft
     decode rounds and, on the per-request path, prompt completions (one
-    per request)."""
-    eng = res.engine
-    st, pool, n_layers = eng.stats, eng.pool, res.cfg.n_layers
-    deq_worker = eng.worker.dequantize_calls if eng.worker else 0
-    draft = eng.draft
-    d_layers = draft.cfg.n_layers if draft else 0
-    d_rounds = draft.syncs if draft else 0
-    d_ingests = draft.launches - draft.syncs if draft else 0
-    want = {
-        "paged_decode_attention": (0 if draft else n_layers
-                                   * st.decode_launches)
-        + d_layers * d_rounds,
-        "packed_verify_attention": n_layers * st.decode_launches
-        if draft else 0,
-        "packed_prefill_attention": n_layers * st.packed_prefill_calls,
-        "chunked_prefill_attention": n_layers * st.prefill_chunk_calls
-        + d_layers * d_ingests,
-        "block_gather": pool.gather_calls,
-        "kv_block_quantize": pool.quantize_calls + pool.tier.quantize_calls,
-        "kv_block_dequantize": (pool.dequantize_calls
-                                + pool.tier.dequantize_calls + deq_worker),
-    }
+    per request).  A fleet's replicas (killed ones too) are summed."""
+    n_layers = res.cfg.n_layers
+    want = dict.fromkeys(counts, 0)
+    syncs = host_syncs = failures = 0
+    for eng in res.replicas:
+        st, pool, draft = eng.stats, eng.pool, eng.draft
+        d_layers = draft.cfg.n_layers if draft else 0
+        d_rounds = draft.syncs if draft else 0
+        d_ingests = draft.launches - draft.syncs if draft else 0
+        for name, n in {
+                "paged_decode_attention": (0 if draft else n_layers
+                                           * st.decode_launches)
+                + d_layers * d_rounds,
+                "packed_verify_attention": n_layers * st.decode_launches
+                if draft else 0,
+                "packed_prefill_attention": n_layers
+                * st.packed_prefill_calls,
+                "chunked_prefill_attention": n_layers
+                * st.prefill_chunk_calls + d_layers * d_ingests,
+                "block_gather": pool.gather_calls,
+                "kv_block_quantize": pool.quantize_calls
+                + pool.tier.quantize_calls,
+                "kv_block_dequantize": pool.dequantize_calls
+                + pool.tier.dequantize_calls
+                + (eng.worker.dequantize_calls if eng.worker else 0),
+        }.items():
+            want[name] += n
+        completions = 0 if eng.packed_prefill else len(res.requests)
+        syncs += (st.decode_launches + st.packed_prefill_calls + d_rounds
+                  + completions)
+        host_syncs += st.host_syncs
+        failures += st.transfer_failures
     for name, n in want.items():
         if counts[name] != n:
             fail(f"{label}: {name} launched {counts[name]} times, its "
                  f"callers counted {n}")
-    completions = 0 if eng.packed_prefill else len(res.requests)
-    syncs = (st.decode_launches + st.packed_prefill_calls + d_rounds
-             + completions)
-    if st.host_syncs != syncs:
-        fail(f"{label}: host syncs {st.host_syncs} != decode launches "
-             f"{st.decode_launches} + packed prefill calls "
-             f"{st.packed_prefill_calls} + draft rounds {d_rounds} + prompt "
-             f"completions {completions}")
-    if st.transfer_failures:
-        fail(f"{label}: {st.transfer_failures} background copies failed")
+    if host_syncs != syncs:
+        fail(f"{label}: host syncs {host_syncs} != decode launches + "
+             f"packed prefill calls + draft rounds + prompt completions "
+             f"({syncs})")
+    if failures:
+        fail(f"{label}: {failures} background copies failed")
 
 
 def report(res, counts: dict, label: str, card: str) -> None:
     summary = res.summary()
-    st = res.engine.stats
+    engines = res.replicas
     print(f"  [{card}] {label}: served {summary['requests']} requests in "
           f"{summary['wall_s']:.3f} s: {summary['tokens_per_s']:.1f} "
           f"tokens/s (prefill + output), "
@@ -918,19 +947,22 @@ def report(res, counts: dict, label: str, card: str) -> None:
             "demoted_blocks", "cold_reload_blocks", "prefill_chunk_calls",
             "spec_proposed", "spec_accepted", "spec_rejected",
             "draft_launches", "spec_depth_hist")
+    wait = sum(e.stats.transfer_wait_s for e in engines)
     print(f"  [{card}] " + ", ".join(f"{k} {summary[k]}" for k in keys)
-          + f", transfer_wait_s {st.transfer_wait_s:.4f}", flush=True)
-    cs = res.engine.cache.stats
-    print(f"  [{card}] cache: spilled {cs.spilled_blocks}, restored "
-          f"{cs.restored_blocks}, staged restores {cs.staged_restores}, "
-          f"re-adopted {cs.readopted_blocks}", flush=True)
+          + f", transfer_wait_s {wait:.4f}", flush=True)
+    cache = [e.cache.stats for e in engines]
+    print(f"  [{card}] cache: " + ", ".join(
+        f"{what} {sum(getattr(cs, key) for cs in cache)}" for what, key in (
+            ("spilled", "spilled_blocks"), ("restored", "restored_blocks"),
+            ("staged restores", "staged_restores"),
+            ("re-adopted", "readopted_blocks"))), flush=True)
     print(f"  launch counts {counts}", flush=True)
 
 def serve_phase(card: str):
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
-    torch.cuda.reset_peak_memory_stats()
+    fresh_peak()
     ops.reset_launch_counts()
     res = serve.main(["--arch", "qwen1_5_0_5b", "--device", "cuda",
                       "--seed", "0"])
@@ -1085,7 +1117,7 @@ def glm_phase(card: str):
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
-    torch.cuda.reset_peak_memory_stats()
+    fresh_peak()
     ops.reset_launch_counts()
     t0 = time.monotonic()
     res = serve.main(["--arch", "chatglm3_6b", "--device", "cuda", "--seed",
@@ -1215,6 +1247,208 @@ def tiered_phase(card: str):
           "gate: int8 is lossy)", flush=True)
     int8_res.engine.kill()
     return counts_a, counts_b
+
+
+def fresh_peak() -> None:
+    """Collect the earlier runs' engines (their pools and snapshots sit in
+    reference cycles) before the peak is reset, so that the next
+    ``max_memory_allocated`` counts only what is alive in the run."""
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def check_fleet_book(res, label: str) -> dict:
+    """The two-leg path's accounting: the prefill replicas' exports, the
+    decode replicas' adoptions and the router book's handoffs agree (every
+    request with more than one output token crossed), every reservation
+    settled, and nothing leaks on a live replica.  Reservations are capped
+    at a decode replica's capacity (a zero-block miss beyond it), so
+    reserved == adopted is held only when every reservation was a hit."""
+    s, book = res.summary(), res.controller.book
+    engines = res.replicas
+    out = sum(e.stats.handoffs_out for e in engines if e.role == "prefill")
+    adopted = sum(e.stats.handoffs_in for e in engines
+                  if e.role == "decode")
+    crossing = sum(r.output_len > 1 for r, _ in res.requests)
+    if not out == adopted == book.handoffs == crossing:
+        fail(f"{label}: exported {out}, adopted {adopted}, book "
+             f"{book.handoffs}, requests crossing {crossing}")
+    if not (s["handoff_blocks_out"] == s["handoff_blocks_in"]
+            == book.handoff_blocks == book.adopted_blocks_total):
+        fail(f"{label}: handoff blocks out {s['handoff_blocks_out']}, in "
+             f"{s['handoff_blocks_in']}, book {book.handoff_blocks}, "
+             f"adopted {book.adopted_blocks_total}")
+    if not (s["handoff_bytes_out"] == s["handoff_bytes_in"]
+            == book.handoff_bytes):
+        fail(f"{label}: handoff bytes out {s['handoff_bytes_out']}, in "
+             f"{s['handoff_bytes_in']}, book {book.handoff_bytes}")
+    if book.reservation_hits + book.reservation_misses != book.handoffs:
+        fail(f"{label}: {book.reservation_hits} hits + "
+             f"{book.reservation_misses} misses != {book.handoffs} handoffs")
+    if book.reserved_blocks_total > book.adopted_blocks_total or (
+            book.reservation_misses == 0
+            and book.reserved_blocks_total != book.adopted_blocks_total):
+        fail(f"{label}: reserved {book.reserved_blocks_total} blocks, "
+             f"adopted {book.adopted_blocks_total}, "
+             f"{book.reservation_misses} misses")
+    if book.reservations or any(st.reserved_blocks
+                                for st in book.states.values()):
+        fail(f"{label}: a reservation stands after the run")
+    for iid, eng in res.controller.engines.items():
+        leaks = [what for what, bad in (
+            ("export state", eng._handoff_wait or eng._handoff_ready),
+            ("used blocks", eng.bm.used_blocks),
+            ("host-tier groups of requests", [
+                rid for tier in (eng.pool.tier.hot, eng.pool.tier.cold)
+                for rid in tier if rid >= 0])) if bad]
+        if leaks:
+            fail(f"{label}: replica {iid} ({eng.role}) leaks {leaks}")
+    return s
+
+
+def report_fleet(res, counts: dict, label: str, card: str,
+                 before: int) -> None:
+    """``before``: bytes allocated on the card when the run began (the
+    shared weights), printed beside the run's peak."""
+    report(res, counts, label, card)
+    s = res.summary()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  [{card}] {label}: replicas {s['instances']}, killed "
+          f"{s['killed']}; handoffs {s['handoffs']} ({s['handoff_blocks']} "
+          f"blocks, {s['handoff_bytes']} bytes, worker copy time "
+          f"{s['handoff_copy_s']:.4f} s); reservations: hits "
+          f"{s['reservation_hits']}, misses {s['reservation_misses']}, "
+          f"reserved {s['reserved_blocks_total']} / adopted "
+          f"{s['adopted_blocks_total']} blocks; max_memory_allocated "
+          f"{peak / 2**30:.3f} GiB, {before / 2**30:.3f} GiB of it "
+          "allocated before the run", flush=True)
+
+
+def kill_fleet(res) -> None:
+    for eng in res.replicas:
+        eng.kill()
+
+
+def disagg_phase(card: str):
+    """The disaggregated fleet at Qwen1.5-0.5B's full width on the serve
+    traffic: (a) 1 prefill + 1 decode replica, fp32 wire; (b) the int8
+    wire, 1 prefill + 2 decode replicas, twice; (c) prefill + decode +
+    coloc, the decode replica killed after its first adoption."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    args = ["--arch", "qwen1_5_0_5b", "--device", "cuda", "--seed", "0",
+            "--pd", "disagg", "--instances", "1", "--decode-instances", "1"]
+
+    def run(label, extra=(), audit=None):
+        fresh_peak()
+        before = torch.cuda.memory_allocated()
+        ops.reset_launch_counts()
+        if audit is None:
+            res = serve.main(args + list(extra))
+        else:
+            with audit:
+                res = serve.main(args + list(extra))
+        counts = ops.launch_counts()
+        report_fleet(res, counts, label, card, before)
+        check_launches(res, counts, label)
+        check_fleet_book(res, label)
+        return res, counts
+
+    print("  -- (a) fp32 wire, 1 prefill + 1 decode replica", flush=True)
+    res_a, counts_a = run("disagg (a)")
+    s = res_a.summary()
+    block = res_a.replicas[0].pool.tier.block_bytes
+    if s["handoff_bytes_out"] != s["handoff_blocks_out"] * block:
+        fail(f"disagg (a): {s['handoff_bytes_out']} wire bytes for "
+             f"{s['handoff_blocks_out']} fp32 blocks of {block}")
+    if counts_a["block_gather"] < s["handoffs_out"]:
+        fail("disagg (a): fewer block_gather launches than exports")
+    check_streams(res_a, "disagg (a)")
+    cfg, params = res_a.cfg, res_a.params
+    greedy = [res_a.outputs[r.rid] for r, _ in res_a.requests]
+    kill_fleet(res_a)
+    del res_a
+
+    # (b) runs two decode replicas, so the decode leg never evicts: a
+    # request the decode replica evicts and recomputes gets exact fp32 KV
+    # where an adopted one keeps the int8 wire's, and which requests the
+    # timing-driven scheduler evicts differs from run to run
+    print("  -- (b) int8 wire, 1 prefill + 2 decode replicas, run twice",
+          flush=True)
+    audit = QuantAudit(ops)
+    runs_b = []
+    for i in (1, 2):
+        label = f"disagg (b) run {i}"
+        res, counts = run(label, ["--handoff-int8", "--decode-instances",
+                                  "2"], audit if i == 1 else None)
+        s = res.summary()
+        recomputed = sum(e.stats.prefill_tokens for e in res.replicas
+                         if e.role == "decode")
+        if recomputed:
+            fail(f"{label}: the decode replicas recomputed {recomputed} "
+                 "tokens, so the streams depend on the schedule")
+        if s["handoff_bytes_out"] >= s["handoff_blocks_out"] * block:
+            fail(f"{label}: the int8 wire is not narrower")
+        quant = sum(e.pool.quantize_calls for e in res.replicas
+                    if e.role == "prefill")
+        if not counts["kv_block_quantize"] == quant == s["handoffs_out"]:
+            fail(f"{label}: kv_block_quantize launched "
+                 f"{counts['kv_block_quantize']} times, the prefill "
+                 f"replica quantized {quant}, exports {s['handoffs_out']}")
+        if counts["kv_block_dequantize"] != s["handoffs_in"]:
+            fail(f"{label}: kv_block_dequantize launched "
+                 f"{counts['kv_block_dequantize']} times for "
+                 f"{s['handoffs_in']} adoptions")
+        streams = [res.outputs[r.rid] for r, _ in res.requests]
+        runs_b.append((streams, s["handoff_bytes_out"], counts))
+        kill_fleet(res)
+        del res
+    if runs_b[0][:2] != runs_b[1][:2]:
+        fail("disagg (b): two int8 runs differ in streams or wire bytes")
+    worst = float(audit.worst)
+    if audit.calls < 1 or not worst <= QUANT_BOUND_STEPS:
+        fail(f"disagg (b): {audit.calls} quantize calls, worst "
+             f"{worst:.7f} steps (bound {QUANT_BOUND_STEPS:.7f})")
+    same = sum(a == b for a, b in zip(runs_b[0][0], greedy))
+    tokens = sum(sum(x == y for x, y in zip(a, b))
+                 for a, b in zip(runs_b[0][0], greedy))
+    print(f"  int8 wire: both runs identical ({runs_b[0][1]} wire bytes); "
+          f"{audit.planes} planes in {audit.calls} quantize calls, worst "
+          f"|x - dequant(quant(x))| = {worst:.7f} x scale (bound "
+          f"{QUANT_BOUND_STEPS:.7f}); {same} of {len(greedy)} streams and "
+          f"{tokens} of {sum(map(len, greedy))} tokens equal greedy "
+          "forward (not a gate: int8 is lossy)", flush=True)
+
+    print("  -- (c) churn: prefill + decode + coloc, the decode replica "
+          "killed after its first adoption", flush=True)
+    killed = []
+
+    def after_round(ctl):
+        for iid, eng in list(ctl.engines.items()):
+            if eng.role == "decode" and eng.stats.handoffs_in and not killed:
+                killed.append(iid)
+                ctl.kill_instance(iid)
+
+    fresh_peak()
+    before = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    res_c = serve.serve_fleet(cfg, params, serve.FULL,
+                              roles=("prefill", "decode", "coloc"),
+                              pd_mode="disagg", device="cuda",
+                              after_round=after_round)
+    counts_c = ops.launch_counts()
+    report_fleet(res_c, counts_c, "disagg (c)", card, before)
+    if not killed:
+        fail("disagg (c): the decode replica never adopted a payload")
+    check_launches(res_c, counts_c, "disagg (c)")
+    check_streams(res_c, "disagg (c)")
+    for r, _ in res_c.requests:
+        if len(res_c.emitted[r.rid]) != r.output_len:
+            fail(f"disagg (c): rid {r.rid} emitted "
+                 f"{len(res_c.emitted[r.rid])} tokens for {r.output_len}")
+    kill_fleet(res_c)
+    return counts_a, runs_b[0][2], runs_b[1][2], counts_c
 
 
 COPY_KERNELS = ("quantize_kernel", "dequantize_kernel", "gather_kernel")
@@ -1471,6 +1705,9 @@ def main() -> None:
     phase("glm")
     counts_glm = glm_phase(card)
 
+    phase("disagg")
+    counts_da, counts_db1, counts_db2, counts_dc = disagg_phase(card)
+
     if "--profile" in sys.argv[1:]:
         phase("profile")
         profile_phase(ROOT / "build" / "profile")
@@ -1500,13 +1737,16 @@ def main() -> None:
             replaces="src/repro/kernels/block_gather.py:23"),
     }
     # launches: the main paths' runs (serve with the lanes on and off,
-    # tiered (a), tiered (b), spec with both drafts, per-request), each
-    # read right after its run with the counts set to 0 just before it
+    # tiered (a), tiered (b), spec with both drafts, per-request, glm, the
+    # disagg passes), each read right after its run with the counts set to
+    # 0 just before it
     runs = {"serve": counts, "serve, lanes off": counts_off,
             "tiered (a)": counts_a, "tiered (b)": counts_b,
             "spec, same draft": counts_same,
             "spec, other draft": counts_other, "per-request": counts_pr,
-            "glm": counts_glm}
+            "glm": counts_glm, "disagg (a)": counts_da,
+            "disagg (b) run 1": counts_db1, "disagg (b) run 2": counts_db2,
+            "disagg (c)": counts_dc}
     launches = {name: sum(c[name] for c in runs.values()) for name in meta}
     for name, n in launches.items():
         if n < 1:

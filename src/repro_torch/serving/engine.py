@@ -1,5 +1,6 @@
 """Serving engine: continuous batching over a PyTorch model on the card
-(port of ``repro.serving.engine``, colocated role).
+(port of ``repro.serving.engine``: the colocated, prefill and decode
+roles).
 
 One ``Engine`` = one model replica.  Each iteration:
 
@@ -34,11 +35,18 @@ fetch (the sampled tokens), counted in ``EngineStats.host_syncs``, as is
 each draft decode round; a per-request prefill chunk fetches only when
 its prompt completes.
 
-Not ported yet (each raises ``NotImplementedError``): the prefill / decode
-roles and their handoff (``role != "coloc"``, ``handoff_quantize``).
+Disaggregation: a ``role="prefill"`` replica exports every request whose
+prefill leg is done as a ``HandoffPayload`` (one ``block_gather`` launch
+into a fresh tensor, or ``kv_block_quantize`` after it with
+``handoff_quantize``, copied to the host on the D2H lane) and releases
+its blocks; a ``role="decode"`` replica adopts a payload with
+``import_handoff`` (one upload, an on-device dequantize for the int8
+wire, one scatter) and continues the decode leg.  The payload travels
+through host memory, as in the reference, so it outlives either replica.
 """
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
 from collections import deque
@@ -48,10 +56,12 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..core.batching import BatchPlan, EngineConfig, SchedView
+from ..core.batching import (BatchPlan, EngineConfig, SchedView,
+                             evict_for_space, needed_context)
 from ..core.blocks import BlockManager, blocks_for
 from ..core.estimator import BatchLatencyEstimator
 from ..core.request import Phase, Request
+from ..kernels import ops
 from ..models.model import ArchConfig, require_dense, resolve_device
 from . import model_exec
 from .kv_pool import PagedKVPool
@@ -60,6 +70,56 @@ from .spec import DraftRunner
 from .transfer import TransferWorker
 
 logger = logging.getLogger(__name__)
+
+
+@dataclass
+class HandoffPayload:
+    """One finished prefill leaving a prefill-role replica: the request,
+    everything needed to resume it (prompt + tokens already streamed), and
+    its KV as host-side block payloads — fp32 arrays, or ``(int8 vals,
+    fp32 scales)`` pairs when the handoff wire is quantized (the same
+    per-(layer, K/V)-plane scheme as the cold tier, dequantized ON DEVICE
+    at adoption)."""
+    req: Request
+    prompt: np.ndarray
+    outputs: list            # tokens already emitted (streamed by src)
+    kv_tokens: int           # KV extent shipped == needed_context(req)
+    payloads: list           # per-block: np.ndarray | (vals, scales)
+    quantized: bool
+    src_iid: int = -1        # stamped by the caller that picks it up
+
+    @property
+    def n_blocks(self) -> int:
+        return len(self.payloads)
+
+    @property
+    def wire_bytes(self) -> int:
+        return sum(b[0].nbytes + b[1].nbytes if isinstance(b, tuple)
+                   else b.nbytes for b in self.payloads)
+
+
+@dataclass(frozen=True)
+class HandoffEvent:
+    """A prefill replica finished a request's prefill leg: its KV payload
+    is ready to be adopted by a decode replica."""
+    iid: int                 # source (prefill) instance
+    payload: HandoffPayload
+
+
+@dataclass(frozen=True)
+class HandoffAdopted:
+    """A decode replica adopted a payload: the decode leg is live there."""
+    iid: int                 # adopting (decode) instance
+    payload: HandoffPayload
+
+
+@dataclass(frozen=True)
+class HandoffDropped:
+    """A decode replica could not adopt a delivered payload (no device
+    blocks even after policy eviction) — the router should fail the
+    request over to a re-prefill."""
+    iid: int                 # target (decode) instance that refused
+    payload: HandoffPayload
 
 
 @dataclass
@@ -91,6 +151,14 @@ class EngineStats:
     # exactly one per sampling launch (no hidden syncs)
     prefill_chunk_calls: int = 0   # per-request prefill_chunk launches
     # (packed_prefill=False)
+    # --- disaggregation (prefill/decode split) ---------------------------
+    handoffs_out: int = 0          # prefill legs exported to a decode peer
+    handoff_blocks_out: int = 0    # KV blocks shipped out
+    handoff_bytes_out: int = 0     # wire bytes shipped out (int8 < fp32)
+    handoffs_in: int = 0           # payloads adopted from a prefill peer
+    handoff_blocks_in: int = 0     # KV blocks adopted
+    handoff_bytes_in: int = 0      # wire bytes adopted
+    handoff_copy_s: float = 0.0    # worker time on handoff D2H copies
     # --- speculative decoding (draft propose + packed verify) ------------
     spec_proposed: int = 0         # draft tokens proposed for verification
     spec_accepted: int = 0         # proposals matching the target argmax
@@ -100,11 +168,6 @@ class EngineStats:
     # bounded: long-lived replicas must not grow without limit
     batch_latencies: deque = field(
         default_factory=lambda: deque(maxlen=512))
-
-
-def _unported(flag: str) -> NotImplementedError:
-    return NotImplementedError(f"Engine({flag}) is not ported to "
-                               "repro_torch yet")
 
 
 class Engine:
@@ -127,17 +190,11 @@ class Engine:
                  device="cuda"):
         """``params`` (and a draft's) must already live on ``device``
         (default the card; ``device="cpu"`` runs the plain PyTorch kernel
-        versions).  The flags of the reference that are not ported yet are
-        accepted only at their one supported value and raise otherwise."""
+        versions).  Replicas may share one ``params`` dict."""
         if role not in ("coloc", "prefill", "decode"):
             raise ValueError(f"unknown engine role: {role!r}")
         if eng_cfg.spec_k > 0 and spec_draft is None:
             raise ValueError("spec_k > 0 requires spec_draft=(cfg, params)")
-        for flag, unported in (
-                ("role=" + repr(role), role != "coloc"),
-                ("handoff_quantize=True", handoff_quantize)):
-            if unported:
-                raise _unported(flag)
         require_dense(cfg)
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
@@ -145,7 +202,18 @@ class Engine:
                              f"engine on {self.device}")
         self.cfg = cfg
         self.params = params
+        # a role-parameterized replica runs the same pipeline; the role
+        # only (a) flips the policy's pd_mode (prefill replicas price
+        # admission with the prefill-phase phi), (b) arms the handoff
+        # export path (prefill) / import path (decode)
+        self.role = role
+        if role != "coloc" and eng_cfg.pd_mode != role:
+            eng_cfg = dataclasses.replace(eng_cfg, pd_mode=role)
         self.eng_cfg = eng_cfg
+        # int8 handoff wire: quantize the exported KV on device (the cold
+        # tier's kernel pair) so the cross-replica copy is ~4x narrower;
+        # lossy-but-deterministic (|x - deq| <= scale/2 per plane)
+        self.handoff_quantize = handoff_quantize
         self.policy = policy
         self.max_ctx = max_ctx
         # host_tier_bytes bounds the hot host tier (LRU demotion into the
@@ -206,6 +274,12 @@ class Engine:
         # incrementally — avoids the per-chunk prompt+outputs rebuild
         self._seqs: dict[int, np.ndarray] = {}
         self._seq_fill: dict[int, int] = {}
+        # prefill-role export state: payloads whose D2H copy is riding the
+        # background lane (rid -> payload, the device snapshot it copies
+        # (kept for the failure path), epoch), and completed payloads
+        # awaiting pickup by the controller
+        self._handoff_wait: dict[int, tuple[HandoffPayload, object, int]] = {}
+        self._handoff_ready: list[HandoffPayload] = []
         self.queue: list[Request] = []
         self.now = 0.0
         # when set, ``now`` tracks wall time relative to a shared epoch
@@ -251,7 +325,8 @@ class Engine:
                 self.stats.cache_hit_tokens += hit
 
     def has_work(self) -> bool:
-        return any(r.phase != Phase.FINISHED for r in self.queue)
+        return (any(r.phase != Phase.FINISHED for r in self.queue)
+                or bool(self._handoff_wait) or bool(self._handoff_ready))
 
     # ------------------------------------------------------------------
     # §4.3 transfer lanes (background worker plumbing)
@@ -295,6 +370,26 @@ class Engine:
             return 0
         landed = 0
         for d in self.worker.drain():
+            if d.kind == "d2h" and d.rid in self._handoff_wait:
+                # handoff export riding the D2H lane: the local leg is
+                # already released, so this must be intercepted BEFORE the
+                # stale/dead guards.  Failure falls back to a synchronous
+                # fetch of the retained device snapshot (a fresh tensor
+                # the pool never writes, so still intact)
+                payload, gathered, epoch = self._handoff_wait[d.rid]
+                if d.epoch == epoch:
+                    del self._handoff_wait[d.rid]
+                    self._epoch.pop(d.rid, None)
+                    self.stats.handoff_copy_s += d.seconds
+                    if d.ok:
+                        payload.payloads = [d.blocks[bi]
+                                            for bi in sorted(d.blocks)]
+                    else:
+                        self.stats.transfer_failures += 1
+                        payload.payloads = self._materialize_handoff(
+                            gathered, payload.quantized)
+                    self._finalize_handoff(payload)
+                continue
             stale = d.epoch != self._epoch.get(d.rid, 0)
             dead = d.rid not in self.bm.table
             if d.kind == "h2d":
@@ -413,6 +508,157 @@ class Engine:
         for r in plan.evictions:
             self._evict_to_host(r)
 
+    # ------------------------------------------------------------------
+    # disaggregation: prefill -> decode KV handoff
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _materialize_handoff(gathered, quantized: bool) -> list:
+        """Synchronous fetch of a handoff snapshot into per-block host
+        payloads (the no-worker path, and the failure fallback)."""
+        if quantized:
+            vals, scales = (t.cpu().numpy() for t in gathered)
+            return [(vals[i], scales[i]) for i in range(vals.shape[0])]
+        data = gathered.cpu().numpy()
+        return [data[i] for i in range(data.shape[0])]
+
+    def _finalize_handoff(self, payload: HandoffPayload) -> None:
+        self.stats.handoffs_out += 1
+        self.stats.handoff_blocks_out += payload.n_blocks
+        self.stats.handoff_bytes_out += payload.wire_bytes
+        self._handoff_ready.append(payload)
+
+    def _collect_handoffs(self) -> None:
+        """Prefill role: any queued request whose prefill leg is complete
+        (first token emitted — or a failover recompute caught up — and the
+        KV fully device-resident) is exported.  Runs before form_batch so
+        an export-ready request is never decoded locally, and again after
+        the step so the common case (prefill finished this iteration)
+        ships without an extra scheduling round."""
+        ready = []
+        for r in self.queue:
+            if r.phase != Phase.DECODE:
+                continue        # output_len == 1 finishes on this replica
+            s = self.bm.table.get(r.rid)
+            if s is None or s.dev_tokens < needed_context(r):
+                continue
+            ready.append(r)
+        for r in ready:
+            self._export_handoff(r)
+
+    def _export_handoff(self, r: Request) -> None:
+        rid = r.rid
+        kv_tokens = needed_context(r)
+        nb = blocks_for(kv_tokens, self.pool.block_size)
+        logical = list(range(nb))
+        payload = HandoffPayload(
+            req=r, prompt=np.asarray(r._prompt, np.int32),  # type: ignore
+            outputs=list(self.outputs.get(rid, [])),
+            kv_tokens=kv_tokens, payloads=[],
+            quantized=self.handoff_quantize)
+        # ONE device gather (quantized on device when the wire is int8)
+        # into a fresh tensor: later in-place pool writes into the blocks
+        # released below run after it on the engine's stream, and the
+        # worker's copy waits on its ready event, so the snapshot is
+        # race-free and the local blocks can be released immediately
+        gathered = (self.pool.gather_blocks_quantized(rid, logical)
+                    if self.handoff_quantize
+                    else self.pool.gather_blocks(rid, logical))
+        epoch = self._epoch.get(rid, 0) + 1
+        self._epoch[rid] = epoch
+        if self.worker is not None:
+            self._handoff_wait[rid] = (payload, gathered, epoch)
+            self.worker.offload(rid, epoch, logical, gathered)
+        # release the local leg — the decode replica owns the request now
+        self.bm.release(r)
+        self.pool.release(rid)
+        if self.worker is not None:
+            self.worker.invalidate(rid)
+        self.outputs.pop(rid, None)
+        self._seqs.pop(rid, None)
+        self._seq_fill.pop(rid, None)
+        if self.draft is not None:
+            self.draft.drop(rid)
+        self.queue = [q for q in self.queue if q.rid != rid]
+        r.instance = None
+        if self.worker is None:
+            self._epoch.pop(rid, None)
+            payload.payloads = self._materialize_handoff(
+                gathered, payload.quantized)
+            self._finalize_handoff(payload)
+
+    def take_handoffs(self) -> list[HandoffPayload]:
+        """Completed handoff payloads since the last call (the controller
+        picks these up after each step and routes them)."""
+        out, self._handoff_ready = self._handoff_ready, []
+        return out
+
+    def handoff_outputs(self, rid: int) -> Optional[list[int]]:
+        """Streamed tokens of a request currently in handoff-export state.
+
+        ``_export_handoff`` pops ``self.outputs[rid]`` the moment the KV
+        snapshot is taken, so a caller mirroring outputs into a durable
+        log after the step would otherwise miss the prefill leg's first
+        token — and a failover resume from that log would drop it.  The
+        payload keeps the authoritative copy until delivery."""
+        ent = self._handoff_wait.get(rid)
+        if ent is not None:
+            return list(ent[0].outputs)
+        for p in self._handoff_ready:
+            if p.req.rid == rid:
+                return list(p.outputs)
+        return None
+
+    def import_handoff(self, payload: HandoffPayload) -> bool:
+        """Decode side: adopt a prefill peer's KV payload and continue the
+        decode leg exactly where the source stopped.  All blocks land in
+        ONE batched scatter; int8 wire payloads are uploaded as int8 and
+        dequantized ON DEVICE (one ``kv_block_dequantize`` call, counted
+        in the pool's ``dequantize_calls``).  Returns False if device
+        blocks could not be made available (the caller should fail over
+        to a re-prefill)."""
+        req, rid = payload.req, payload.req.rid
+        nb = len(payload.payloads)
+        ok = self.bm.grow(req, payload.kv_tokens, self.now)
+        if not ok:
+            # the admission-time reservation should make this impossible;
+            # evict per policy (mirrors EngineSim.import_request)
+            view = SchedView(self.queue, self.bm, self.est, self.eng_cfg,
+                             self.now)
+            need = self.bm.blocks_needed_for_growth(req, payload.kv_tokens)
+            for v in evict_for_space(view, need, {rid}):
+                self._evict_to_host(v)
+            ok = self.bm.grow(req, payload.kv_tokens, self.now)
+        if not ok or not self.pool.alloc(rid, nb):
+            self.bm.release(req)
+            self.pool.release(rid)
+            return False
+        entries = payload.payloads
+        if entries and all(isinstance(e, tuple) for e in entries):
+            data = ops.kv_block_dequantize(
+                self._dev(np.stack([e[0] for e in entries])),
+                self._dev(np.stack([e[1] for e in entries])))
+            self.pool.dequantize_calls += 1
+        else:
+            data = self._dev(np.stack(entries))
+        self.pool._scatter(self.pool.tables[rid], data)
+        req.instance = id(self) & 0xffff
+        self.queue.append(req)
+        self.outputs[rid] = list(payload.outputs)
+        prompt = np.asarray(payload.prompt, np.int32)
+        req._prompt = prompt  # type: ignore
+        prior = payload.outputs
+        seq = np.zeros(len(prompt) + max(req.output_len, len(prior)) + 1,
+                       np.int32)
+        seq[:len(prompt)] = prompt
+        if prior:
+            seq[len(prompt):len(prompt) + len(prior)] = prior
+        self._seqs[rid] = seq
+        self._seq_fill[rid] = len(prompt) + len(prior)
+        self.stats.handoffs_in += 1
+        self.stats.handoff_blocks_in += nb
+        self.stats.handoff_bytes_in += payload.wire_bytes
+        return True
+
     def use_wall_clock(self, epoch: float) -> None:
         """Drive ``now`` from ``time.monotonic() - epoch`` (shared across
         replicas) instead of the per-engine virtual latency accumulator."""
@@ -427,6 +673,11 @@ class Engine:
         offload_landed = self._drain_transfers()
         self.bm.complete_offloads(self.now)
         self._sync_tier_state()
+        if self.role == "prefill":
+            # straggler exports (e.g. a full-prompt cache hit made the
+            # request decode-ready without any prefill work this step) —
+            # and keeps export-ready requests out of the local batch
+            self._collect_handoffs()
         view = SchedView(self.queue, self.bm, self.est, self.eng_cfg,
                          self.now)
         plan = self.policy.form_batch(view)
@@ -519,6 +770,11 @@ class Engine:
             self._seqs.pop(r.rid, None)
             self._seq_fill.pop(r.rid, None)
         self.queue = [r for r in self.queue if r.phase != Phase.FINISHED]
+        if self.role == "prefill":
+            # export every request whose prefill leg just completed (the
+            # gather runs before the proactive-mirror dispatch below, so
+            # the exported KV ships exactly once)
+            self._collect_handoffs()
         # all K/V written and finished requests released: snapshot and
         # enqueue the proactive D2H mirrors the policy scheduled (released
         # requests' directives drop out via their empty tables), then
@@ -845,7 +1101,8 @@ class Engine:
 
     def kill(self) -> list[Request]:
         """Stop the replica: stop the transfer worker and release every
-        unfinished request, which is returned (its ``instance`` cleared)."""
+        unfinished request, which is returned (its ``instance`` cleared),
+        with the requests of handoff payloads not yet picked up."""
         self.alive = False
         if self.worker is not None:
             self.worker.stop()
@@ -857,4 +1114,14 @@ class Engine:
                 self.draft.drop(r.rid)
             r.instance = None
         self.queue.clear()
+        # handoff payloads in flight or awaiting pickup die with the
+        # replica — their requests must re-prefill elsewhere
+        for payload, _, _ in self._handoff_wait.values():
+            payload.req.instance = None
+            orphans.append(payload.req)
+        self._handoff_wait.clear()
+        for payload in self._handoff_ready:
+            payload.req.instance = None
+            orphans.append(payload.req)
+        self._handoff_ready.clear()
         return orphans

@@ -61,11 +61,11 @@ class KVTierStore:
     """
 
     def __init__(self, block_bytes: int, budget_bytes: Optional[int] = None,
-                 cold_quantize: bool = True, device="cpu"):
+                 cold_quantize: bool = True, device="cuda"):
         self.block_bytes = block_bytes
         self.budget_bytes = budget_bytes
         self.cold_quantize = cold_quantize
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.hot: dict[int, dict[int, np.ndarray]] = {}
         # bi -> (int8 vals (L,2,bs,Hkv,hd), fp32 scales (L,2)) | fp32 array
         self.cold: dict[int, dict[int, object]] = {}

@@ -59,6 +59,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops
+from ..models.model import resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -85,9 +86,9 @@ class TransferWorker:
     """One background thread owning both copy lanes of one engine, on
     ``device`` (the card: its own copy stream; the CPU: plain copies)."""
 
-    def __init__(self, max_staged: int = 2, device="cpu"):
+    def __init__(self, max_staged: int = 2, device="cuda"):
         self.max_staged = max_staged
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._cuda = self.device.type == "cuda"
         if self._cuda and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())

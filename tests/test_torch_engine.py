@@ -3,10 +3,10 @@ package's full-sequence ``forward`` on the same parameters and prompts:
 token for token, on the ``tests/test_engine_real.py`` scenarios (plain,
 preemption, sync offload / recompute-only), the per-request prefill and
 logits-decode paths (``packed_prefill=False``, ``fused_decode=False``),
-the port's two-wave serve traffic (prefix-cache hits), and every flag that
-is not ported yet raising ``NotImplementedError``.  The engine runs with
-its default background transfer lanes (``overlap_transfers=True``) unless
-a test says otherwise."""
+the port's two-wave serve traffic (prefix-cache hits), and the model
+families that are not ported yet raising ``NotImplementedError``.  The
+engine runs with its default background transfer lanes
+(``overlap_transfers=True``) unless a test says otherwise."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -194,14 +194,6 @@ def test_serve_entry_point_runs_on_cpu(capsys):
     out = capsys.readouterr().out
     assert '"device": "cpu"' in out and "tdg_ratio" in out
     assert res.engine.stats.tokens_out == 12 * serve.SMOKE.output_len
-
-
-@pytest.mark.parametrize("kwargs", [
-    dict(role="prefill"), dict(role="decode"), dict(handoff_quantize=True)],
-    ids=lambda kw: next(iter(kw)) + "=" + str(next(iter(kw.values()))))
-def test_unported_flags_raise(kwargs):
-    with pytest.raises(NotImplementedError):
-        make_engine(**kwargs)
 
 
 @pytest.mark.parametrize("kwargs", [

@@ -774,3 +774,115 @@ def test_per_request_engine_on_card_matches_greedy_forward(cuda):
         assert eng.outputs[r.rid] == greedy_generate(cfg, params, prompt,
                                                      r.output_len)
     eng.kill()
+
+
+def disagg_fleet(cuda, params_seed, int8, roles=("prefill", "decode"),
+                 after_round=None, num_blocks=None):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import serve
+    from repro_torch.models.model import init_params
+
+    cfg = get_smoke("qwen1_5_0_5b")
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(params_seed),
+                         device=cuda)
+    traffic = serve.SMOKE if num_blocks is None else dataclasses.replace(
+        serve.SMOKE, num_blocks=num_blocks)
+    ops.reset_launch_counts()
+    res = serve.serve_fleet(cfg, params, traffic, roles=roles,
+                            pd_mode="disagg", device=cuda,
+                            handoff_int8=int8, after_round=after_round)
+    return cfg, params, res, ops.launch_counts()
+
+
+def check_handoff_launches(res, counts):
+    """block_gather, kv_block_quantize and kv_block_dequantize launched
+    exactly as often as the fleet's pools, tier stores and workers called
+    them, and at least once per export / adoption."""
+    engines = res.replicas
+    s = res.summary()
+    assert counts["block_gather"] == sum(e.pool.gather_calls
+                                         for e in engines)
+    assert counts["kv_block_quantize"] == sum(
+        e.pool.quantize_calls + e.pool.tier.quantize_calls for e in engines)
+    assert counts["kv_block_dequantize"] == sum(
+        e.pool.dequantize_calls + e.pool.tier.dequantize_calls
+        + (e.worker.dequantize_calls if e.worker else 0) for e in engines)
+    assert counts["block_gather"] >= s["handoffs_out"] > 0
+    assert s["transfer_failures"] == 0
+
+
+def test_disagg_fleet_on_card_matches_greedy_forward(cuda):
+    """Smoke-width 1 prefill + 1 decode fleet on the card, fp32 wire:
+    every stream equals greedy decoding by the port's forward, every
+    request crossed the handoff, and the copy kernels launched as often as
+    their callers counted."""
+    from repro_torch.models.model import greedy_generate
+
+    cfg, params, res, counts = disagg_fleet(cuda, 0, False)
+    s = res.summary()
+    assert s["handoffs_out"] == s["handoffs_in"] == s["handoffs"] == 12
+    assert s["handoff_bytes_out"] == (
+        s["handoff_blocks_out"] * res.replicas[0].pool.tier.block_bytes)
+    check_handoff_launches(res, counts)
+    assert counts["kv_block_quantize"] == counts["kv_block_dequantize"] == 0
+    for r, prompt in res.requests:
+        assert res.outputs[r.rid] == greedy_generate(cfg, params, prompt,
+                                                     r.output_len)
+    for e in res.replicas:
+        e.kill()
+
+
+def test_disagg_int8_fleet_on_card_is_deterministic(cuda):
+    """The int8 wire on the card, run twice: identical streams and wire
+    bytes, narrower than fp32; one kv_block_quantize launch per export and
+    one kv_block_dequantize launch per adoption.  The pools hold the whole
+    traffic, so the decode replica never evicts and recomputes (which
+    would give that request exact KV where the wire gives int8, at a
+    point the timing-driven schedule picks)."""
+    runs = []
+    for _ in range(2):
+        _, _, res, counts = disagg_fleet(cuda, 0, True, num_blocks=128)
+        s = res.summary()
+        pe, de = res.replicas
+        assert de.stats.evictions == de.stats.prefill_tokens == 0
+        assert s["handoff_bytes_out"] < (s["handoff_blocks_out"]
+                                         * pe.pool.tier.block_bytes)
+        check_handoff_launches(res, counts)
+        assert counts["kv_block_quantize"] == pe.pool.quantize_calls == \
+            s["handoffs_out"]
+        assert counts["kv_block_dequantize"] == s["handoffs_in"]
+        first = res.requests[0][0].rid
+        runs.append(({r.rid - first: res.outputs[r.rid]
+                      for r, _ in res.requests}, s["handoff_bytes_out"]))
+        for e in res.replicas:
+            e.kill()
+    assert runs[0] == runs[1]
+
+
+def test_disagg_churn_on_card_matches_greedy_forward(cuda):
+    """prefill + decode + coloc on the card, the decode replica killed
+    after its first adoption: every stream still equals greedy
+    decoding, each token emitted once."""
+    from repro_torch.models.model import greedy_generate
+
+    killed = []
+
+    def after_round(ctl):
+        for iid, eng in list(ctl.engines.items()):
+            if eng.role == "decode" and eng.stats.handoffs_in and not killed:
+                killed.append(iid)
+                ctl.kill_instance(iid)
+
+    cfg, params, res, counts = disagg_fleet(
+        cuda, 1, False, roles=("prefill", "decode", "coloc"),
+        after_round=after_round)
+    assert killed
+    check_handoff_launches(res, counts)
+    for r, prompt in res.requests:
+        assert res.outputs[r.rid] == greedy_generate(cfg, params, prompt,
+                                                     r.output_len)
+        assert len(res.emitted[r.rid]) == r.output_len
+    for e in res.replicas:
+        e.kill()

@@ -59,7 +59,8 @@ def test_default_device_entry_points_raise_without_a_card(monkeypatch):
     from repro_torch.core import EngineConfig, SlideBatching
     from repro_torch.launch import serve
     from repro_torch.models.model import init_params
-    from repro_torch.serving import Engine, PagedKVPool
+    from repro_torch.serving import (Engine, KVTierStore, PagedKVPool,
+                                     TransferWorker)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_smoke("qwen1_5_0_5b")
@@ -71,5 +72,9 @@ def test_default_device_entry_points_raise_without_a_card(monkeypatch):
         init_params(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="cuda"):
         PagedKVPool(cfg, 8, 16)
+    with pytest.raises(RuntimeError, match="cuda"):
+        TransferWorker()
+    with pytest.raises(RuntimeError, match="cuda"):
+        KVTierStore(block_bytes=1)
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--smoke"])

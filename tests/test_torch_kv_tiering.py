@@ -142,7 +142,7 @@ def test_tier_store_mirrors_jax_op_for_op(cold_quantize):
     """Random puts, reads, int8-wire puts, splits, payload fetches and
     drops under a 4-block budget: both stores hold the same hot and cold
     groups, pick the same LRU victims and keep bitwise-equal payloads."""
-    t = KVTierStore(1, 4, cold_quantize)
+    t = KVTierStore(1, 4, cold_quantize, device="cpu")
     j = JTierStore(1, 4, cold_quantize)
     rng = np.random.default_rng(5 + cold_quantize)
     next_rid = -1
@@ -186,7 +186,7 @@ def test_tier_store_mirrors_jax_op_for_op(cold_quantize):
 
 def test_tier_unbounded_never_demotes():
     rng = np.random.default_rng(0)
-    tier = KVTierStore(block_bytes=1, budget_bytes=None)
+    tier = KVTierStore(block_bytes=1, budget_bytes=None, device="cpu")
     for rid in range(8):
         tier.put(rid, {0: blk(rng), 1: blk(rng)})
     assert tier.cold_blocks == 0 and tier.demoted_blocks == 0
@@ -195,7 +195,8 @@ def test_tier_unbounded_never_demotes():
 
 def test_tier_budget_demotes_lru_whole_groups():
     rng = np.random.default_rng(1)
-    tier = KVTierStore(block_bytes=1, budget_bytes=2, cold_quantize=False)
+    tier = KVTierStore(block_bytes=1, budget_bytes=2, cold_quantize=False,
+                        device="cpu")
     tier.put(1, {0: blk(rng), 1: blk(rng)})
     tier.put(2, {0: blk(rng), 1: blk(rng)})  # over budget: rid 1 demotes
     assert tier.is_cold(1) and not tier.is_cold(2)
@@ -208,7 +209,8 @@ def test_tier_budget_demotes_lru_whole_groups():
 
 def test_tier_quantized_roundtrip_bound_and_counters():
     rng = np.random.default_rng(2)
-    tier = KVTierStore(block_bytes=1, budget_bytes=1, cold_quantize=True)
+    tier = KVTierStore(block_bytes=1, budget_bytes=1, cold_quantize=True,
+                        device="cpu")
     a = blk(rng)
     tier.put(1, {0: a})
     tier.put(2, {0: blk(rng)})               # demotes rid 1 over int8
@@ -305,7 +307,7 @@ def test_cache_restore_pool_full_is_plain_miss(spill_env):
 
 def test_cache_readopt_mid_reload_invalidates_staged_buffer(spill_env):
     pool, bm, cache = spill_env
-    w = TransferWorker(max_staged=2)
+    w = TransferWorker(max_staged=2, device="cpu")
     cache.worker = w
     try:
         rng = np.random.default_rng(14)
@@ -324,7 +326,7 @@ def test_cache_readopt_mid_reload_invalidates_staged_buffer(spill_env):
 
 def test_cache_spilled_match_uses_staged_buffer(spill_env):
     pool, bm, cache = spill_env
-    w = TransferWorker(max_staged=2)
+    w = TransferWorker(max_staged=2, device="cpu")
     cache.worker = w
     try:
         rng = np.random.default_rng(15)

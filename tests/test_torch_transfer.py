@@ -36,7 +36,7 @@ def group(rng, n=2):
 # --------------------------------------------------------------------------
 
 def test_stale_epoch_staging_discarded():
-    w = TransferWorker()
+    w = TransferWorker(device="cpu")
     try:
         assert w.prefetch(5, 0, [np.zeros(BLK, np.float32)])
         assert w.flush()
@@ -46,7 +46,7 @@ def test_stale_epoch_staging_discarded():
 
 
 def test_stale_staging_slot_released_without_consumer():
-    w = TransferWorker(max_staged=1)
+    w = TransferWorker(max_staged=1, device="cpu")
     blk = np.zeros(BLK, np.float32)
     try:
         assert w.prefetch(5, 0, [blk])
@@ -64,7 +64,7 @@ def test_stale_staging_slot_released_without_consumer():
 
 def test_invalidate_races_reload_and_frees_slot():
     rng = np.random.default_rng(0)
-    w = TransferWorker(max_staged=1)
+    w = TransferWorker(max_staged=1, device="cpu")
     try:
         assert w.prefetch(5, 0, group(rng))
         assert not w.prefetch(6, 0, group(rng))    # ring full
@@ -79,7 +79,7 @@ def test_invalidate_races_reload_and_frees_slot():
 
 
 def test_failed_transfer_reported_and_pending_released():
-    w = TransferWorker()
+    w = TransferWorker(device="cpu")
     try:
         assert w.prefetch(7, 0, [np.zeros(3), np.zeros(2)])  # stack raises
         assert w.flush()
@@ -105,7 +105,7 @@ def test_quantized_wire_dequantizes_on_device():
     vals, scales = tref.kv_block_quantize_ref(
         torch.as_tensor(np.stack(group(rng, 3))))
     payloads = [(vals[i].numpy(), scales[i].numpy()) for i in range(3)]
-    w = TransferWorker(max_staged=1)
+    w = TransferWorker(max_staged=1, device="cpu")
     try:
         assert w.prefetch(7, 0, payloads)
         assert w.flush()
@@ -123,7 +123,7 @@ def test_d2h_offload_lands_blocks_and_time():
     rng = np.random.default_rng(2)
     snap = torch.as_tensor(np.stack(group(rng, 3)))
     vals, scales = tref.kv_block_quantize_ref(snap)
-    w = TransferWorker()
+    w = TransferWorker(device="cpu")
     try:
         w.offload(4, 2, [5, 6, 7], snap)
         w.offload(4, 2, [8, 9, 10], (vals, scales))
@@ -154,7 +154,7 @@ def test_pool_offload_drop_staged_reload_round_trip():
     pool.offload_blocks(1, [0, 1, 2])            # one gather, one copy
     assert sorted(pool.host[1]) == [0, 1, 2] and pool.gather_calls == 1
     pool.drop_device_blocks(1)
-    w = TransferWorker()
+    w = TransferWorker(device="cpu")
     try:
         assert w.prefetch(1, 0, [pool.host[1][i] for i in range(3)])
         assert w.flush()
