@@ -111,6 +111,39 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                once.  Each pass under the serve phase's launch-count and
                host-sync gates; walls, TTFT / TPOT, handoff blocks, bytes
                and copy time, reservations and peak memory printed.
+ 10. sim     — the live coloc engine at Qwen1.5-0.5B's full width over a
+               profiling schedule of decode-heavy, mixed and prefill-only
+               steps (each step's work items and measured latency, as
+               ``Engine._profile`` records them): the §4.1 estimator
+               (``BatchLatencyEstimator.fit``) fitted on three of four
+               steps, its held-out MAPE printed beside the H100
+               ``AnalyticalExecutor``'s (Qwen1.5-0.5B fp32 profile at
+               the card's fp32 peak, ``t_launch`` from the smallest
+               measured step of the fitting split) and their
+               predicted / measured ratios by step kind; no online refit
+               failed; the serve phase's launch-count and host-sync gates.
+               Then ``replay_sim`` of the frontend phase's trace on that
+               executor, twice: identical rows (all but ``wall_s``), every
+               request complete.
+ 11. frontend — ``ServiceFrontend`` over torch replicas on their
+               ``EngineDriver`` threads (``launch/serve.py``
+               ``serve_frontend``, the path of ``--mode frontend``): the
+               first 64 requests of the industrial trace (3 priority
+               classes, seed 1) replayed at 1000x, prompts clipped to 512
+               and outputs to 16 tokens, the SLOs of ``serve.PRIORITIES``,
+               160-block replicas, the router and the book on the sim
+               phase's fitted estimator.  (a) 2 coloc replicas; (b) 1
+               prefill + 2 decode replicas, fp32 wire; (c) 2 coloc
+               replicas, replica 0 killed after its first token.  Every
+               pass: every stream equals greedy forward, each token
+               emitted once, drain() True, no driver thread died, the
+               serve phase's launch-count and host-sync gates; (b)
+               exports = adoptions = book handoffs = the requests with
+               more than one output token; (c) every orphan re-dispatched
+               and complete.  Client-edge TTFT / TPOT p50 / p99 per
+               priority, SLO attainment, TDG_Ratio, per-replica
+               iterations, wall, peak memory and the sim's row for the
+               same trace printed.
 
 fp32 matmuls run in full fp32: TF32 is switched off for cuBLAS and cuDNN.
 The last two lines are the ``{"kernels": ...}`` JSON and the
@@ -1451,6 +1484,277 @@ def disagg_phase(card: str):
     return counts_a, runs_b[0][2], runs_b[1][2], counts_c
 
 
+# ---------------------------------------------------------------------------
+# sim and frontend phases: the simulator against the card, the async tier
+# ---------------------------------------------------------------------------
+
+def step_kind(items) -> str:
+    pre = sum(1 for _, _, p in items if p)
+    return ("prefill" if pre == len(items) else "decode" if pre == 0
+            else "mixed")
+
+
+def sim_phase(card: str, dev="cuda"):
+    """The live coloc engine at Qwen1.5-0.5B's full width over a profiling
+    schedule of decode-heavy, mixed and prefill-heavy steps: every step's
+    (work items, measured latency) is what ``Engine._profile`` records.
+    Three of four steps fit ``BatchLatencyEstimator``; the fourth are held
+    out for its MAPE and the H100 ``AnalyticalExecutor``'s (Qwen1.5-0.5B
+    fp32 profile priced at the card's fp32 peak, ``t_launch`` from the
+    training split's smallest step).  Then
+    ``replay_sim`` of the frontend phase's trace on that executor, twice:
+    identical rows, every request complete."""
+    from repro_torch.configs import get
+    from repro_torch.core import (SLO, BatchLatencyEstimator, EngineConfig,
+                                  GoRouting, Request, RouterConfig,
+                                  make_policy)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import Engine
+    from repro_torch.sim import (AnalyticalExecutor, ClusterConfig,
+                                 ClusterSim, InstanceHardware,
+                                 QWEN1_5_0_5B_FP32, replay_sim)
+    from types import SimpleNamespace
+
+    cfg = get("qwen1_5_0_5b")
+    fresh_peak()
+    params = init_params(cfg, torch.Generator(dev).manual_seed(0),
+                         device=dev)
+    eng = Engine(cfg, params, EngineConfig(eta=1.0, w_p=serve.W_P, tau=1e9),
+                 make_policy("slidebatching"), num_blocks=1024,
+                 block_size=16, device=dev)
+    rng = np.random.default_rng(5)
+    added = []
+
+    def add(n, lo, hi, out):
+        for _ in range(n):
+            plen = int(rng.integers(lo, hi + 1))
+            r = Request(prompt_len=plen, output_len=out, arrival=eng.now,
+                        slo=SLO(60.0, 60.0),
+                        priority=int(rng.integers(1, 4)))
+            prompt = rng.integers(1, cfg.vocab, plen).astype(np.int32)
+            eng.add_request(r, prompt)
+            added.append((r, prompt))
+
+    # decode-heavy base (16 short prompts, 96 tokens each), mixed steps
+    # from a pair of long prompts every 6 steps while it decodes, then
+    # prefill-only waves of one-token requests; the decode batch shrinks
+    # as the base finishes
+    schedule = {0: (16, 16, 64, 96)}
+    schedule.update({6 * k: (2, 128, 768, 8) for k in range(1, 16)})
+    schedule.update({110 + 4 * k: (1 + k % 4, 256, 768, 1)
+                     for k in range(10)})
+    ops.reset_launch_counts()
+    profile = []
+    t0 = time.monotonic()
+    for i in range(2000):
+        if i in schedule:
+            add(*schedule[i])
+        res = eng.step()
+        if res is not None:
+            profile.append((res["plan"].work_items(), res["latency"]))
+        elif not eng.has_work() and i > max(schedule):
+            break
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = ops.launch_counts()
+    run = SimpleNamespace(cfg=cfg, replicas=[eng], requests=added)
+    check_launches(run, counts, "sim profile")
+    if any(r.generated < r.output_len for r, _ in added):
+        fail("sim: a profiling request did not finish")
+    if eng.stats.refit_failures:
+        fail(f"sim: {eng.stats.refit_failures} online refits failed")
+    kinds = {k: sum(step_kind(b) == k for b, _ in profile)
+             for k in ("decode", "mixed", "prefill")}
+    if min(kinds.values()) < 5:
+        fail(f"sim: the profile lacks a step kind: {kinds}")
+    train = [x for i, x in enumerate(profile) if i % 4 != 3]
+    hold = [x for i, x in enumerate(profile) if i % 4 == 3]
+    est = BatchLatencyEstimator.fit([b for b, _ in train],
+                                    [l for _, l in train])
+    hold_b, hold_l = [b for b, _ in hold], np.array([l for _, l in hold])
+    mape_fit = est.mape(hold_b, hold_l)
+    lats = np.array([l for _, l in profile])
+    floor = float(min(l for _, l in train))     # fitted on the train split
+    ex = AnalyticalExecutor(QWEN1_5_0_5B_FP32,
+                            InstanceHardware.h100(t_launch=floor))
+    ex_ref = AnalyticalExecutor(QWEN1_5_0_5B_FP32, InstanceHardware.h100())
+
+    def mape(pred):
+        return float(np.mean(np.abs(pred - hold_l) / hold_l))
+
+    pred = np.array([ex.batch_latency(b) for b in hold_b])
+    pred_ref = np.array([ex_ref.batch_latency(b) for b in hold_b])
+    mape_an, mape_an_ref = mape(pred), mape(pred_ref)
+    if not all(np.isfinite(x) for x in (mape_fit, mape_an, mape_an_ref)):
+        fail(f"sim: a MAPE is not finite: {mape_fit}, {mape_an}")
+    print(f"  [{card}] sim: profiled {len(profile)} steps of the live "
+          f"engine ({kinds}; {len(added)} requests, wall {wall:.3f} s, "
+          f"step latency min {floor * 1e3:.3f} / median "
+          f"{np.median(lats) * 1e3:.3f} / max {lats.max() * 1e3:.3f} ms); "
+          f"{len(train)} fit, {len(hold)} held out", flush=True)
+    print(f"  [{card}] sim: fitted estimator {est.as_dict()}, held-out "
+          f"MAPE {mape_fit:.4f}", flush=True)
+    for kind in ("decode", "mixed", "prefill"):
+        sel = np.array([step_kind(b) == kind for b in hold_b])
+        if sel.any():
+            ratio = pred[sel] / hold_l[sel]
+            print(f"  [{card}] sim: {kind} steps held out {int(sel.sum())}:"
+                  f" measured median {np.median(hold_l[sel]) * 1e3:.3f} ms,"
+                  f" H100 analytical / measured median "
+                  f"{np.median(ratio):.4f}", flush=True)
+    hw = ex.hw
+    print(f"  [{card}] sim: H100 AnalyticalExecutor (Qwen1.5-0.5B fp32, "
+          f"{hw.peak_flops_fp32 / 1e12:g} TFLOP/s fp32 x mfu {hw.mfu}, "
+          f"{hw.hbm_bw / 1e12:g} TB/s x hbm_eff {hw.hbm_eff}, t_launch = "
+          f"the training split's smallest measured step, "
+          f"{floor * 1e3:.3f} ms): "
+          f"held-out MAPE {mape_an:.4f}, predicted / measured median "
+          f"{np.median(pred / hold_l):.4f}; with the reference's assumed "
+          f"t_launch 3 ms: MAPE {mape_an_ref:.4f}, ratio "
+          f"{np.median(pred_ref / hold_l):.4f}", flush=True)
+    eng.kill()
+    del eng
+
+    def sim_once():
+        trace = serve.replay_trace(serve.REPLAY)
+        for i, r in enumerate(trace):
+            r.rid = i
+            r.arrival /= serve.REPLAY.speed      # the frontend's pace
+        cs = ClusterSim(lambda: make_policy("slidebatching"),
+                        GoRouting(est, RouterConfig(pd_mode="coloc")), ex,
+                        est, EngineConfig(eta=1.0, w_p=serve.W_P, tau=1e9),
+                        ClusterConfig(pd_mode="coloc", n_prefill=2,
+                                      prefill_blocks=serve.REPLAY.num_blocks
+                                      - 1))
+        return replay_sim(cs, trace, w_p=serve.W_P)
+
+    rep1, rep2 = sim_once(), sim_once()
+    row1 = {k: v for k, v in rep1.row().items() if k != "wall_s"}
+    row2 = {k: v for k, v in rep2.row().items() if k != "wall_s"}
+    if row1 != row2:
+        fail(f"sim: replay_sim rows differ: {row1} vs {row2}")
+    if rep1.n_completed != rep1.n_submitted or rep1.n_rejected:
+        fail(f"sim: replay_sim completed {rep1.n_completed} of "
+             f"{rep1.n_submitted} ({rep1.n_rejected} rejected)")
+    row1 = {k: (None if isinstance(v, float) and not np.isfinite(v)
+                else v) for k, v in row1.items()}     # inf -> valid JSON
+    print(f"  [{card}] sim: replay_sim of the frontend trace (2 coloc "
+          f"replicas of {serve.REPLAY.num_blocks - 1} blocks, H100 "
+          f"executor), identical twice: {json.dumps(row1)}", flush=True)
+    return est, row1, params, counts
+
+
+def frontend_phase(card: str, est, sim_row: dict, params, dev="cuda"):
+    """``ServiceFrontend`` over torch replicas on the card (``launch/
+    serve.py`` ``serve_frontend``, the path of ``--mode frontend``):
+    64 requests of the industrial trace (3 priority classes, seed 1)
+    replayed at 1000x, prompts clipped to 512 and outputs to 16 tokens,
+    the SLOs of ``serve.PRIORITIES``, 160-block replicas; the router and
+    the book use the estimator fitted in the sim phase.  (a) 2 coloc
+    replicas; (b) 1 prefill + 2 decode replicas, fp32 wire; (c) 2 coloc
+    replicas, replica 0 killed after its first token."""
+    from repro_torch.configs import get
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    cfg = get("qwen1_5_0_5b")
+    print(f"  replay {serve.REPLAY}", flush=True)
+    passes = (("frontend (a)", dict(roles=("coloc", "coloc"),
+                                    pd_mode="coloc")),
+              ("frontend (b)", dict(roles=("prefill", "decode", "decode"),
+                                    pd_mode="disagg")),
+              ("frontend (c)", dict(roles=("coloc", "coloc"),
+                                    pd_mode="coloc", kill=0)))
+    out = {}
+    for label, kw in passes:
+        print(f"  -- {label}: {kw}", flush=True)
+        fresh_peak()
+        before = torch.cuda.memory_allocated()
+        ops.reset_launch_counts()
+        res = serve.serve_frontend(cfg, params, serve.REPLAY, seed=0,
+                                   device=dev, est=est, **kw)
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        s = res.summary()
+        fe = res.frontend
+        dead = [iid for iid, d in (*fe.drivers.items(),
+                                   *fe.killed.items())
+                if d.error is not None]
+        if dead:
+            fail(f"{label}: driver threads {dead} died")
+        if not res.drained:
+            fail(f"{label}: drain() did not return True")
+        if s["completed"] != s["submitted"] or s["rejected"]:
+            fail(f"{label}: {s['completed']} of {s['submitted']} streams "
+                 f"complete, {s['rejected']} rejected")
+        want = sum(r.output_len for r, _ in res.requests)
+        for r, _ in res.requests:
+            if len(res.outputs[r.rid]) != r.output_len:
+                fail(f"{label}: rid {r.rid} streamed "
+                     f"{len(res.outputs[r.rid])} tokens for {r.output_len}")
+        if s["tokens_out"] != want:
+            fail(f"{label}: the replicas emitted {s['tokens_out']} tokens "
+                 f"for {want}")
+        check_launches(res, counts, label)
+        check_streams(res, label)
+        if kw["pd_mode"] == "disagg":
+            exp = sum(e.stats.handoffs_out for e in res.replicas
+                      if e.role == "prefill")
+            ado = sum(e.stats.handoffs_in for e in res.replicas
+                      if e.role == "decode")
+            crossing = sum(r.output_len > 1 for r, _ in res.requests)
+            if not exp == ado == fe.book.handoffs == crossing:
+                fail(f"{label}: exported {exp}, adopted {ado}, book "
+                     f"{fe.book.handoffs}, requests crossing {crossing}")
+            if fe.book.reservations:
+                fail(f"{label}: reservations left {fe.book.reservations}")
+        if kw.get("kill") is not None:
+            if s["killed"] != [kw["kill"]] or not res.orphans:
+                fail(f"{label}: killed {s['killed']}, "
+                     f"{len(res.orphans)} orphans")
+            short = [r.rid for r in res.orphans
+                     if r.generated != r.output_len]
+            if short:
+                fail(f"{label}: orphans {short} did not complete")
+        prios = sorted({r.priority for r, _ in res.requests})
+        print(f"  [{card}] {label}: {s['completed']}/{s['submitted']} "
+              f"streams exact in wall {s['wall_s']} s; TDG_Ratio "
+              f"{s['tdg_ratio']}, SLO attainment {s['slo']}; replicas "
+              f"{s['replicas']}; killed {s['killed']}, orphans "
+              f"{s['orphans']}; max_memory_allocated {peak / 2**30:.3f} "
+              f"GiB, {before / 2**30:.3f} GiB of it before the run",
+              flush=True)
+        for p in prios:
+            print(f"  [{card}] {label}: priority {p}: TTFT p50 "
+                  f"{s[f'ttft_p50_s_prio{p}']:.4f} / p99 "
+                  f"{s[f'ttft_p99_s_prio{p}']:.4f} s, TPOT p50 "
+                  f"{s[f'tpot_p50_s_prio{p}']:.4f} / p99 "
+                  f"{s[f'tpot_p99_s_prio{p}']:.4f} s, TDG "
+                  f"{s[f'tdg_p{p}']}, SLO {s[f'slo_p{p}']}", flush=True)
+        busy = sum(s["busy_s"].values())
+        print(f"  [{card}] {label}: step time summed over replicas "
+              f"{busy:.3f} s = {busy / res.wall_s:.3f} x the wall "
+              f"(one default stream); evictions {s['evictions']}, "
+              f"prefill tokens {s['prefill_tokens']}, handoffs "
+              f"{s['handoffs']} ({s['handoff_blocks']} blocks), "
+              f"reservations hits {s['reservation_hits']} / misses "
+              f"{s['reservation_misses']}", flush=True)
+        print(f"  [{card}] {label} row: {json.dumps({k: s[k] for k in sim_row if k in s})}",
+              flush=True)
+        print(f"  [{card}] sim row:          {json.dumps(sim_row)}",
+              flush=True)
+        print(f"  launch counts {counts}", flush=True)
+        out[label] = counts
+        for eng in res.replicas:
+            eng.kill()
+        # an engine reaches its frontend (on_token -> driver -> sink), so
+        # the next pass's peak counts its own pools only once all go
+        del res, fe, eng
+    return out
+
+
 COPY_KERNELS = ("quantize_kernel", "dequantize_kernel", "gather_kernel")
 SCHED_KEYS = ("iterations", "decode_launches", "packed_prefill_calls",
               "prefill_tokens", "evictions", "offload_blocks", "tdg_ratio")
@@ -1708,6 +2012,13 @@ def main() -> None:
     phase("disagg")
     counts_da, counts_db1, counts_db2, counts_dc = disagg_phase(card)
 
+    phase("sim")
+    est, sim_row, params, counts_sim = sim_phase(card)
+
+    phase("frontend")
+    counts_fe = frontend_phase(card, est, sim_row, params)
+    del params
+
     if "--profile" in sys.argv[1:]:
         phase("profile")
         profile_phase(ROOT / "build" / "profile")
@@ -1738,15 +2049,16 @@ def main() -> None:
     }
     # launches: the main paths' runs (serve with the lanes on and off,
     # tiered (a), tiered (b), spec with both drafts, per-request, glm, the
-    # disagg passes), each read right after its run with the counts set to
-    # 0 just before it
+    # disagg passes, the sim phase's profile, the frontend passes), each
+    # read right after its run with the counts set to 0 just before it
     runs = {"serve": counts, "serve, lanes off": counts_off,
             "tiered (a)": counts_a, "tiered (b)": counts_b,
             "spec, same draft": counts_same,
             "spec, other draft": counts_other, "per-request": counts_pr,
             "glm": counts_glm, "disagg (a)": counts_da,
             "disagg (b) run 1": counts_db1, "disagg (b) run 2": counts_db2,
-            "disagg (c)": counts_dc}
+            "disagg (c)": counts_dc, "sim profile": counts_sim,
+            **counts_fe}
     launches = {name: sum(c[name] for c in runs.values()) for name in meta}
     for name, n in launches.items():
         if n < 1:

@@ -1,6 +1,6 @@
 """Serve multi-priority requests on one model replica — the port's entry
-point (counterpart of ``repro.launch.serve --mode real`` and
-``examples/priority_serving.py``).
+point (counterpart of ``repro.launch.serve`` in its ``real`` and ``sim``
+modes, ``examples/priority_serving.py`` and ``examples/serve_cluster.py``).
 
     python -m repro_torch.launch.serve --arch qwen1_5_0_5b
     python -m repro_torch.launch.serve --arch qwen1_5_0_5b --smoke --device cpu
@@ -12,6 +12,11 @@ point (counterpart of ``repro.launch.serve --mode real`` and
     python -m repro_torch.launch.serve --pd disagg --instances 1 \
         --decode-instances 1 [--handoff-int8]              # P/D fleet
     python -m repro_torch.launch.serve --pd coloc --instances 2
+    python -m repro_torch.launch.serve --mode frontend --instances 2
+    python -m repro_torch.launch.serve --mode frontend --pd disagg \
+        --instances 1 --decode-instances 2                 # async P/D
+    python -m repro_torch.launch.serve --mode sim --dataset industrial \
+        --rate 120 [--hardware h100 --model qwen1.5-0.5b]  # simulator
 
 Random weights from ``--seed`` (nothing is downloaded).  Requests arrive in
 two waves: the first fills the paged pool with mid- and low-priority
@@ -51,10 +56,25 @@ on the card before the copy, dequantized on the card at adoption), and
 decodes there.  ``--pd coloc --instances N`` runs N colocated replicas
 under the same controller.  The summary then adds the handoff counters
 and the router book's reservation counters.
+
+``--mode frontend`` replays ``REPLAY`` (``--smoke``: ``REPLAY_SMOKE``), the
+first 64 requests of the industrial trace (three priority classes), through
+the async ``ServiceFrontend`` over ``--instances`` replicas (``--pd
+disagg``: prefill replicas plus ``--decode-instances`` decode replicas),
+each on its own ``EngineDriver`` thread, at 1000 times the trace's pace;
+prompts are clipped to 512 tokens and outputs to 16, with the SLOs of
+``PRIORITIES``; the handoff crosses in fp32
+(no ``--handoff-int8``).  Other traces and shapes replay through
+``python -m repro_torch.sim.replay --mode frontend``.  It prints one JSON
+line with client-edge TTFT / TPOT per priority, SLO attainment, TDG_Ratio
+and the per-replica iteration counts.  ``--mode sim`` runs the reference
+launcher's simulated cell (``launch/multi_node.py``); ``--hardware h100``
+prices batches on H100 SXM cards.
 """
 from __future__ import annotations
 
 import argparse
+import asyncio
 import dataclasses
 import json
 import time
@@ -70,7 +90,10 @@ from ..core.estimator import BatchLatencyEstimator
 from ..core.tdg import tdg_ratio
 from ..models.model import ArchConfig, init_params, resolve_device
 from ..serving.engine import Engine
+from ..serving.frontend import FrontendConfig, ServiceFrontend
 from ..serving.service import ServiceController
+from ..sim.replay import clip_lengths, replay_frontend, synth_prompt
+from ..sim.workloads import WORKLOADS
 
 # priority -> (weight, TTFT SLO s, TPOT SLO s)
 PRIORITIES = {1: (3.0, 0.5, 0.05), 2: (2.0, 1.0, 0.1), 3: (1.0, 2.0, 0.2)}
@@ -455,8 +478,189 @@ def serve_fleet(cfg: ArchConfig, params: dict, traffic: Traffic, *,
                        wall, arrived, emitted)
 
 
+@dataclasses.dataclass(frozen=True)
+class Replay:
+    """Shape of one frontend replay: the first ``n_requests`` of a
+    ``workload`` trace (``rate = n_requests / 2`` over 8 s from
+    ``trace_seed``, as ``examples/serve_cluster.py`` draws it), prompts
+    clipped to ``max_in`` and outputs to ``max_out`` tokens, the SLOs of
+    ``PRIORITIES``, replayed at ``speed`` times the trace's pace (1000:
+    every request in flight together) over replicas of ``num_blocks``
+    blocks."""
+    workload: str = "industrial"
+    n_requests: int = 64
+    max_in: int = 512
+    max_out: int = 16
+    speed: float = 1000.0
+    num_blocks: int = 160
+    block_size: int = 16
+    trace_seed: int = 1
+
+
+REPLAY = Replay()
+DRAIN_TIMEOUT_S = 600.0
+REPLAY_SMOKE = Replay(n_requests=16, max_in=96, max_out=8, num_blocks=28)
+
+
+def replay_trace(replay: Replay) -> list:
+    """The replay's requests in arrival order, clipped, with the SLOs of
+    ``PRIORITIES``."""
+    n = replay.n_requests
+    trace = WORKLOADS[replay.workload](rate=n / 2.0, duration=8.0,
+                                       seed=replay.trace_seed)[:n]
+    trace = clip_lengths(trace, max_in=replay.max_in,
+                         max_out=replay.max_out)
+    for r in trace:
+        r.slo = SLO(*PRIORITIES[r.priority][1:])
+    return sorted(trace, key=lambda r: r.arrival)
+
+
+@dataclasses.dataclass
+class FrontendResult:
+    cfg: ArchConfig
+    params: dict
+    frontend: ServiceFrontend
+    engines: dict                  # iid -> Engine, every replica started
+    requests: list                 # [(Request, prompt np.ndarray)]
+    streams: list                  # RequestStream per request, same order
+    report: object                 # sim.replay.ReplayReport (client edge)
+    drained: bool                  # frontend.drain() returned True
+    orphans: list                  # requests re-dispatched by a kill
+
+    @property
+    def replicas(self) -> list:
+        return list(self.engines.values())
+
+    @property
+    def wall_s(self) -> float:
+        return self.report.wall
+
+    @property
+    def outputs(self) -> dict:
+        """rid -> the tokens its client received."""
+        return {s.request.rid: list(s.tokens) for s in self.streams}
+
+    def summary(self) -> dict:
+        """``examples/serve_cluster.py``'s report as one dict: the replay
+        row (client-edge TDG_Ratio, SLO attainment, TTFT / TPOT), TTFT and
+        TPOT p50 / p99 per priority at the client edge, each replica's
+        iterations, tokens and speed EWMA, and the counters summed over
+        the replicas (killed ones too)."""
+        out = dict(self.report.row())
+        for p in sorted({s.request.priority for s in self.streams}):
+            mine = [s for s in self.streams if s.request.priority == p]
+            for key in ("ttft", "tpot"):
+                vals = [getattr(s, key) for s in mine
+                        if getattr(s, key) is not None]
+                for q in (50, 99):
+                    out[f"{key}_p{q}_s_prio{p}"] = (
+                        float(np.percentile(vals, q)) if vals else None)
+        book = self.frontend.book
+        out["replicas"] = {
+            iid: {"role": e.role, "iterations": e.stats.iterations,
+                  "tokens_out": e.stats.tokens_out,
+                  "speed_ewma": (book.states[iid].speed
+                                 if iid in book.states else None)}
+            for iid, e in self.engines.items()}
+        out["killed"] = sorted(self.frontend.killed)
+        out["orphans"] = len(self.orphans)
+        for key in ("iterations", "tokens_out", "prefill_tokens",
+                    "evictions", "reload_blocks", "cache_hit_tokens",
+                    "decode_launches", "packed_prefill_calls", "host_syncs",
+                    "offload_blocks", "transfer_failures", "handoffs_out",
+                    "handoff_blocks_out", "handoff_bytes_out", "handoffs_in",
+                    "handoff_blocks_in", "handoff_bytes_in"):
+            out[key] = sum(getattr(e.stats, key) for e in self.replicas)
+        out["busy_s"] = {iid: sum(e.stats.batch_latencies)
+                         for iid, e in self.engines.items()}
+        for key in ("handoffs", "handoff_blocks", "handoff_bytes",
+                    "reservation_hits", "reservation_misses",
+                    "reserved_blocks_total", "adopted_blocks_total"):
+            out[key] = getattr(book, key)
+        out["drained"] = self.drained
+        return out
+
+
+async def _kill_after_first_token(fe: ServiceFrontend, iid: int,
+                                  orphans: list) -> None:
+    eng = fe.drivers[iid].engine
+    while eng.stats.tokens_out == 0:
+        await asyncio.sleep(1e-3)
+    orphans.extend(fe.kill_instance(iid))
+
+
+def serve_frontend(cfg: ArchConfig, params: dict, replay: Replay, *,
+                   roles: Sequence[str], pd_mode: str, seed: int = 0,
+                   device="cuda",
+                   est: Optional[BatchLatencyEstimator] = None,
+                   kill: Optional[int] = None) -> FrontendResult:
+    """Replay ``replay``'s trace through a ``ServiceFrontend`` over one
+    engine per entry of ``roles`` (sharing ``params``), routed by GoRouting
+    with ``pd_mode``; ``est`` is the router's and the book's latency model
+    (default ``ROUTER_EST``).  ``kill``: the replica killed with
+    ``kill_instance`` once it has emitted a token.  Raises
+    ``DriverDied`` if a driver thread raised."""
+    est = est or BatchLatencyEstimator(**ROUTER_EST)
+    fe = ServiceFrontend(GoRouting(est, RouterConfig(pd_mode=pd_mode)), est,
+                         FrontendConfig(max_inflight=max(replay.n_requests,
+                                                         64)))
+    engines = {}
+    for role in roles:
+        eng = Engine(cfg, params, EngineConfig(eta=1.0, w_p=W_P, tau=1e9),
+                     make_policy("slidebatching"),
+                     num_blocks=replay.num_blocks,
+                     block_size=replay.block_size, device=device, role=role)
+        engines[fe.add_instance(eng)] = eng
+    trace = replay_trace(replay)
+    # the prompts replay_frontend draws: one generator, in arrival order
+    rng = np.random.default_rng(seed)
+    prompts = [synth_prompt(src, cfg.vocab, rng, seed=seed) for src in trace]
+    orphans: list = []
+
+    async def go():
+        await fe.start()
+        try:
+            killer = (asyncio.ensure_future(
+                _kill_after_first_token(fe, kill, orphans))
+                if kill is not None else None)
+            rep = await replay_frontend(fe, trace, cfg.vocab,
+                                        speed=replay.speed, seed=seed,
+                                        w_p=W_P)
+            drained = await fe.drain(DRAIN_TIMEOUT_S)
+            if killer is not None:
+                if killer.done():
+                    killer.result()       # raises what the kill raised
+                else:
+                    killer.cancel()       # the replica never emitted
+            # streams still open (drained False) are dropped by stop()
+            with fe._lock:
+                unfinished = list(fe._streams.values())
+        finally:
+            await fe.stop()
+        return rep, drained, unfinished
+
+    rep, drained, unfinished = asyncio.run(go())
+    if any(e.device.type == "cuda" for e in engines.values()):
+        torch.cuda.synchronize()
+    if rep.n_rejected or rep.n_submitted != len(trace):
+        raise RuntimeError(f"{rep.n_rejected} of {len(trace)} requests "
+                           "rejected at admission")
+    # rids grow in submission order, which is the prompts' (arrival) order
+    streams = sorted(fe.completed_streams + unfinished,
+                     key=lambda s: s.request.rid)
+    return FrontendResult(cfg, params, fe, engines,
+                          [(s.request, p) for s, p in zip(streams, prompts)],
+                          streams, rep, drained, orphans)
+
+
 def main(argv: Optional[list[str]] = None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--mode", choices=("real", "frontend", "sim"),
+                    default="real",
+                    help="real: the engine (or a --pd fleet under the "
+                         "synchronous controller); frontend: a trace "
+                         "replayed through the async ServiceFrontend; sim: "
+                         "the cluster simulator")
     ap.add_argument("--arch", default="qwen1_5_0_5b")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced model and traffic (CPU-sized)")
@@ -484,16 +688,38 @@ def main(argv: Optional[list[str]] = None):
                     help="serve through a fleet of replicas under the "
                          "service controller: colocated, or split into "
                          "prefill and decode roles")
-    ap.add_argument("--instances", type=int, default=1, metavar="N",
+    ap.add_argument("--instances", type=int, default=None, metavar="N",
                     help="--pd coloc: replicas; --pd disagg: prefill "
-                         "replicas")
+                         "replicas (default 1; --mode frontend: 2; --mode "
+                         "sim: 4)")
     ap.add_argument("--decode-instances", type=int, default=None,
                     metavar="D", help="--pd disagg: decode replicas "
                                       "(default 1)")
     ap.add_argument("--handoff-int8", action="store_true",
                     help="--pd disagg: quantize the handoff's KV to int8 "
-                         "on the card")
+                         "on the card (not with --mode frontend)")
+    ap.add_argument("--dataset", default="sharegpt",
+                    help="--mode sim: the workload")
+    ap.add_argument("--rate", type=float, default=80.0,
+                    help="--mode sim: arrivals per second")
+    ap.add_argument("--duration", type=float, default=20.0,
+                    help="--mode sim: trace length in seconds")
+    ap.add_argument("--sched", default="slidebatching",
+                    help="--mode sim: the scheduler")
+    ap.add_argument("--router", default="gorouting",
+                    help="--mode sim: the router")
+    ap.add_argument("--model", default="qwen2-7b",
+                    help="--mode sim: qwen2-7b, qwen3-32b or qwen1.5-0.5b")
+    ap.add_argument("--hardware", choices=("v5e", "h100"), default="v5e",
+                    help="--mode sim: the executor's chip (v5e: the "
+                         "reference's instance)")
     args = ap.parse_args(argv)
+    if args.mode == "sim":
+        return _main_sim(args)
+    if args.instances is None:
+        args.instances = 2 if args.mode == "frontend" else 1
+    if args.mode == "frontend":
+        return _main_frontend(ap, args)
     if args.draft is not None and args.spec_k <= 0:
         ap.error("--draft needs --spec-k K > 0")
     if args.pd is None and (args.instances != 1 or args.handoff_int8
@@ -548,6 +774,49 @@ def main(argv: Optional[list[str]] = None):
                 fused_decode=not args.per_request)
     print(json.dumps({"arch": cfg.name, "device": where,
                       **res.summary()}))
+    return res
+
+
+def _main_sim(args):
+    from .multi_node import run_multi_node
+    row, _ = run_multi_node(
+        args.dataset, args.rate, args.sched, args.router,
+        pd_mode=args.pd or "coloc",
+        n_prefill=4 if args.instances is None else args.instances,
+        n_decode=args.decode_instances or 0, model=args.model,
+        duration=args.duration, seed=args.seed, hardware=args.hardware)
+    print(json.dumps(row, indent=1))
+    return row
+
+
+def _main_frontend(ap, args):
+    if args.spec_k or args.per_request or args.tiered or args.no_overlap:
+        ap.error("--mode frontend serves with packed prefill, plain decode "
+                 "and the transfer lanes")
+    if args.handoff_int8:
+        ap.error("--mode frontend hands KV off in fp32")
+    if args.pd != "disagg" and args.decode_instances:
+        ap.error("--decode-instances needs --pd disagg")
+    dev = resolve_device(args.device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
+    replay = REPLAY_SMOKE if args.smoke else REPLAY
+    pd = args.pd or "coloc"
+    roles = (["coloc"] * args.instances if pd == "coloc" else
+             ["prefill"] * args.instances
+             + ["decode"] * (args.decode_instances or 1))
+    params = init_params(cfg, torch.Generator(dev).manual_seed(args.seed),
+                         device=dev)
+    res = serve_frontend(cfg, params, replay, roles=roles, pd_mode=pd,
+                         seed=args.seed, device=dev)
+    where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+             else "cpu")
+    print(json.dumps({"arch": cfg.name, "device": where, "mode": "frontend",
+                      "pd": pd, "workload": replay.workload,
+                      **res.summary()}))
+    for eng in res.replicas:
+        eng.kill()
     return res
 
 

@@ -1,6 +1,6 @@
-"""Router-side bookkeeping of the synchronous ``ServiceController`` (port
-of ``repro.serving.dispatch``, which the reference's asynchronous
-``ServiceFrontend`` shares).
+"""Router-side bookkeeping shared by the synchronous ``ServiceController``
+and the asynchronous ``ServiceFrontend`` (port of
+``repro.serving.dispatch``).
 
 One ``RouterBook`` owns everything GoRouting needs to see about a fleet of
 engine replicas: per-instance :class:`InstanceState` (prefill queue mirror,
@@ -8,8 +8,9 @@ decode counts, free blocks, EWMA speed), the durable request log used for
 failure recovery, the prefix-affinity registry (which replica has recently
 prefilled which prompt prefix — so repeated prefixes land on the replica
 whose radix cache already holds their KV), and the dispatch step itself
-(router ``select`` + state mutation + logging).  The controller never
-touches ``InstanceState`` directly and runs single threaded.
+(router ``select`` + state mutation + logging).  Neither caller touches
+``InstanceState`` directly — the frontend serialises access with a lock,
+the controller runs single threaded.
 """
 from __future__ import annotations
 

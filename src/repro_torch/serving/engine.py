@@ -1,6 +1,6 @@
 """Serving engine: continuous batching over a PyTorch model on the card
 (port of ``repro.serving.engine``: the colocated, prefill and decode
-roles).
+roles, and the threaded ``EngineDriver``).
 
 One ``Engine`` = one model replica.  Each iteration:
 
@@ -43,11 +43,28 @@ its blocks; a ``role="decode"`` replica adopts a payload with
 ``import_handoff`` (one upload, an on-device dequantize for the int8
 wire, one scatter) and continues the decode leg.  The payload travels
 through host memory, as in the reference, so it outlives either replica.
+
+Two driving modes:
+
+* synchronous — a caller (tests, ``ServiceController``) invokes ``step()``
+  directly and inspects the returned dict;
+* threaded — an ``EngineDriver`` owns the engine on its own thread, pulls
+  submissions from a per-instance inbox queue, and forwards per-token
+  ``TokenEvent``s plus per-step ``StepEvent``s to a sink (the async
+  ``ServiceFrontend``).  All engine state is touched only on the driver
+  thread, so the engine itself needs no locks.  Every launch of a driver
+  thread goes to that thread's current stream, the legacy default stream
+  (the kernel wrappers and the transfer lanes read the current stream at
+  launch time, on the thread that launches), so replicas on one card
+  share one stream and each one's token fetch waits for the other's
+  queued launches: exact, and serialized on the device.
 """
 from __future__ import annotations
 
 import dataclasses
 import logging
+import queue
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -70,6 +87,17 @@ from .spec import DraftRunner
 from .transfer import TransferWorker
 
 logger = logging.getLogger(__name__)
+
+
+@dataclass(frozen=True)
+class TokenEvent:
+    """One token leaving an engine, stamped on the driver thread."""
+    rid: int
+    token: int
+    index: int                   # 1-based output position
+    t_wall: float                # time.monotonic() at emission
+    first: bool
+    last: bool
 
 
 @dataclass
@@ -120,6 +148,37 @@ class HandoffDropped:
     request over to a re-prefill."""
     iid: int                 # target (decode) instance that refused
     payload: HandoffPayload
+
+
+@dataclass(frozen=True)
+class StepEvent:
+    """Engine-side summary of one iteration, for router bookkeeping."""
+    iid: int
+    free_blocks: int
+    latency: float
+    est_time: float
+    prefill_done: tuple = ()     # rids whose first token just came out
+    finished: tuple = ()         # rids fully generated this step
+    # per-step transfer/overlap telemetry (§4.3 lanes made real)
+    offload_blocks: int = 0      # D2H completions drained this step
+    reload_blocks: int = 0       # H2D blocks restored for this batch
+    transfer_wait: float = 0.0   # seconds the step stalled on sync copies
+
+
+@dataclass(frozen=True)
+class DriverFailed:
+    """A driver thread raised: its engine is dead, and every request it
+    held must be failed (the frontend closes their streams with
+    ``error``).  Not in the reference, whose driver thread dies
+    silently."""
+    iid: int
+    error: BaseException
+
+
+class DriverDied(RuntimeError):
+    """Raised by ``EngineDriver.join_idle`` / ``stop`` (and the frontend's
+    ``drain`` / ``stop``) when a driver thread raised; the thread's
+    exception is the ``__cause__``."""
 
 
 @dataclass
@@ -1125,3 +1184,172 @@ class Engine:
             orphans.append(payload.req)
         self._handoff_ready.clear()
         return orphans
+
+
+# --------------------------------------------------------------------------
+# threaded driver loop
+# --------------------------------------------------------------------------
+
+class EngineDriver:
+    """Runs one ``Engine``'s iteration loop on a dedicated thread.
+
+    Submissions arrive on a per-instance inbox queue (fed by GoRouting
+    dispatch in the ``ServiceFrontend``); each loop iteration drains the
+    inbox into the engine queue, forms/executes one batch, and forwards
+    token + step events to ``sink(event)``.  The sink is called on the
+    driver thread and must be thread-safe (the frontend bridges into its
+    asyncio loop with ``call_soon_threadsafe``).
+
+    Unlike the reference, whose thread dies silently on an exception (a
+    CUDA error, say), the driver keeps the exception in ``error``, sends
+    a ``DriverFailed`` event to the sink and re-raises it as the cause of
+    a ``DriverDied`` from ``join_idle`` and ``stop``.
+    """
+
+    def __init__(self, iid: int, engine: Engine,
+                 sink: Callable[[object], None],
+                 *, idle_wait: float = 2e-3, name: Optional[str] = None):
+        self.iid = iid
+        self.engine = engine
+        self.sink = sink
+        self.idle_wait = idle_wait
+        self.inbox: "queue.Queue[tuple]" = queue.Queue()
+        # rids added to THIS engine that have not yet emitted here —
+        # drives StepEvent.prefill_done.  ``generated == 1`` would miss
+        # failover-resumed requests whose first token predates this engine.
+        self._awaiting_first: set[int] = set()
+        self._first_done: list[int] = []
+        self._stop = threading.Event()
+        self._idle = threading.Event()
+        self._idle.set()
+        self.error: Optional[BaseException] = None
+        self._thread = threading.Thread(
+            target=self._run, name=name or f"engine-driver-{iid}",
+            daemon=True)
+        engine.on_token = self._on_token
+
+    # -- submission (any thread) ---------------------------------------
+    def submit(self, req: Request, prompt_tokens,
+               prior_outputs: Optional[list] = None) -> None:
+        self.inbox.put(("req", req, prompt_tokens, prior_outputs))
+        self._idle.clear()
+
+    def submit_handoff(self, payload: HandoffPayload) -> None:
+        """Deliver a prefill peer's KV payload for adoption (decode leg)."""
+        self.inbox.put(("handoff", payload))
+        self._idle.clear()
+
+    def pending(self) -> int:
+        return self.inbox.qsize()
+
+    @property
+    def idle(self) -> bool:
+        """True when the inbox is drained and the engine has no work."""
+        return self._idle.is_set()
+
+    def check(self) -> None:
+        """Raise ``DriverDied`` if the driver thread raised."""
+        if self.error is not None:
+            raise DriverDied(f"engine driver {self.iid} died: "
+                             f"{self.error!r}") from self.error
+
+    # -- lifecycle ------------------------------------------------------
+    def start(self) -> None:
+        self._thread.start()
+
+    def _join(self, timeout: float) -> None:
+        self._stop.set()
+        if self._thread.ident is not None:   # never-started threads can't join
+            self._thread.join(timeout)
+
+    def stop(self, timeout: float = 10.0) -> None:
+        self._join(timeout)
+        self.check()
+
+    def join_idle(self, timeout: float = 60.0) -> bool:
+        """Block until the driver has drained all submitted work."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            self.check()
+            if self._idle.is_set() and self.inbox.empty():
+                return True
+            time.sleep(1e-3)
+        self.check()
+        return False
+
+    def kill(self) -> list[Request]:
+        """Hard-stop the thread and return orphaned requests (plus any
+        submissions still sitting in the inbox, never started).  A driver
+        that died is killed the same way (its error stays in ``error``)."""
+        self._join(timeout=120.0)    # a mid-step first launch can be slow
+        orphans = self.engine.kill()
+        while True:
+            try:
+                item = self.inbox.get_nowait()
+            except queue.Empty:
+                break
+            orphans.append(item[1].req if item[0] == "handoff"
+                           else item[1])
+        return orphans
+
+    # -- driver thread --------------------------------------------------
+    def _on_token(self, req: Request, tok: int, first: bool,
+                  last: bool) -> None:
+        if req.rid in self._awaiting_first:
+            self._awaiting_first.discard(req.rid)
+            self._first_done.append(req.rid)
+        self.sink(TokenEvent(req.rid, tok, req.generated,
+                             time.monotonic(), first, last))
+
+    def _run(self) -> None:
+        try:
+            self._loop()
+        except Exception as exc:
+            self.error = exc
+            logger.error("engine driver %d died", self.iid, exc_info=True)
+            self._idle.set()
+            self.sink(DriverFailed(self.iid, exc))
+
+    def _loop(self) -> None:
+        eng = self.engine
+        while not self._stop.is_set():
+            drained = False
+            while True:
+                try:
+                    item = self.inbox.get_nowait()
+                except queue.Empty:
+                    break
+                if item[0] == "handoff":
+                    payload = item[1]
+                    if eng.import_handoff(payload):
+                        self.sink(HandoffAdopted(self.iid, payload))
+                    else:
+                        self.sink(HandoffDropped(self.iid, payload))
+                else:
+                    _, req, prompt, prior = item
+                    eng.add_request(req, prompt, prior_outputs=prior)
+                    self._awaiting_first.add(req.rid)
+                drained = True
+            res = eng.step() if eng.alive else None
+            for payload in eng.take_handoffs():
+                payload.src_iid = self.iid
+                self.sink(HandoffEvent(self.iid, payload))
+            if res is None:
+                if not drained and not eng.has_work():
+                    self._idle.set()
+                # park until new work or shutdown (also avoids a hot spin
+                # when queued work is temporarily unschedulable)
+                self._stop.wait(self.idle_wait)
+                continue
+            self._idle.clear()
+            first_done, self._first_done = self._first_done, []
+            self.sink(StepEvent(
+                iid=self.iid, free_blocks=eng.bm.free_blocks,
+                latency=res["latency"], est_time=res["plan"].est_time,
+                prefill_done=tuple(first_done),
+                finished=tuple(r.rid for r in res["finished"]),
+                offload_blocks=res.get("offload_blocks", 0),
+                reload_blocks=res.get("reload_blocks", 0),
+                transfer_wait=res.get("transfer_wait", 0.0)))
+            if not eng.has_work() and self.inbox.empty():
+                self._idle.set()

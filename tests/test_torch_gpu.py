@@ -886,3 +886,74 @@ def test_disagg_churn_on_card_matches_greedy_forward(cuda):
         assert len(res.emitted[r.rid]) == r.output_len
     for e in res.replicas:
         e.kill()
+
+
+def frontend_run(cuda, roles, pd_mode, kill=None):
+    """The industrial trace's first 16 requests through ``ServiceFrontend``
+    over Qwen1.5-0.5B replicas at full width cut to two layers, on the
+    card: every stream equals greedy decoding by the port's forward, no
+    driver thread died, drain() returned True, every token was emitted
+    once, and each attention kernel launched n_layers x its engine
+    launches summed over the replicas."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.launch import serve
+    from repro_torch.models.model import greedy_generate, init_params
+
+    cfg = dataclasses.replace(get("qwen1_5_0_5b"), n_layers=2)
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                         device=cuda)
+    replay = dataclasses.replace(serve.REPLAY_SMOKE, max_in=128,
+                                 num_blocks=48)
+    ops.reset_launch_counts()
+    res = serve.serve_frontend(cfg, params, replay, roles=roles,
+                               pd_mode=pd_mode, device=cuda, kill=kill)
+    counts = ops.launch_counts()
+    s = res.summary()
+    fe = res.frontend
+    assert res.drained and s["completed"] == s["submitted"] == 16
+    assert all(d.error is None
+               for d in (*fe.drivers.values(), *fe.killed.values()))
+    assert s["tokens_out"] == sum(r.output_len for r, _ in res.requests)
+    engines = res.replicas
+    assert counts["paged_decode_attention"] == cfg.n_layers * sum(
+        e.stats.decode_launches for e in engines)
+    assert counts["packed_prefill_attention"] == cfg.n_layers * sum(
+        e.stats.packed_prefill_calls for e in engines)
+    assert counts["block_gather"] == sum(e.pool.gather_calls
+                                         for e in engines)
+    assert sum(e.stats.host_syncs for e in engines) == sum(
+        e.stats.decode_launches + e.stats.packed_prefill_calls
+        for e in engines)
+    for r, prompt in res.requests:
+        assert res.outputs[r.rid] == greedy_generate(cfg, params, prompt,
+                                                     r.output_len), r.rid
+    for e in engines:
+        e.kill()
+    return res, s
+
+
+def test_frontend_coloc_replicas_on_card(cuda):
+    """Two colocated replicas, each on its own driver thread."""
+    res, s = frontend_run(cuda, ("coloc", "coloc"), "coloc")
+    assert all(v["iterations"] > 0 for v in s["replicas"].values())
+    assert s["evictions"] > 0
+
+
+def test_frontend_coloc_kill_on_card(cuda):
+    """Two colocated replicas, replica 0 killed after its first token: the
+    orphans resume on the other and complete exactly."""
+    res, s = frontend_run(cuda, ("coloc", "coloc"), "coloc", kill=0)
+    assert s["killed"] == [0] and res.orphans
+    assert all(r.generated == r.output_len for r in res.orphans)
+
+
+def test_frontend_disagg_pair_on_card(cuda):
+    """A prefill and a decode replica: every request with more than one
+    output token crosses the fp32 handoff once."""
+    res, s = frontend_run(cuda, ("prefill", "decode"), "disagg")
+    crossing = sum(r.output_len > 1 for r, _ in res.requests)
+    assert s["handoffs_out"] == s["handoffs_in"] == s["handoffs"] \
+        == crossing > 0
+    assert res.frontend.book.reservations == {}

@@ -22,6 +22,13 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "import repro_torch.kernels.block_gather\n"
         "import repro_torch.kernels.spec_verify\n"
         "import repro_torch.serving.transfer, repro_torch.serving.spec\n"
+        "import repro_torch.sim, repro_torch.sim.replay\n"
+        "import repro_torch.serving.frontend, repro_torch.launch.multi_node\n"
+        "import repro_torch.examples.quickstart\n"
+        "import repro_torch.examples.serve_cluster\n"
+        "import repro_torch.examples.shared_prefix\n"
+        "import runpy\n"
+        "runpy.run_path('tools/torch_perf_smoke.py', run_name='probe')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'repro'\n"
         "             or m.startswith('repro.'))\n"
@@ -45,7 +52,8 @@ def _absolute_imports(path: Path) -> list[str]:
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
-                         + [ROOT / "chip_smoke.py"],
+                         + [ROOT / "chip_smoke.py",
+                            ROOT / "tools" / "torch_perf_smoke.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import_in_source(path):
     for name in _absolute_imports(path):
@@ -78,3 +86,21 @@ def test_default_device_entry_points_raise_without_a_card(monkeypatch):
         KVTierStore(block_bytes=1)
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--smoke"])
+
+
+def test_service_tier_entry_points_raise_without_a_card(monkeypatch):
+    """The async tier, the replay bridge and the examples run on the card
+    unless they are asked for the CPU."""
+    from repro_torch.examples import serve_cluster, shared_prefix
+    from repro_torch.launch import serve
+    from repro_torch.sim.replay import smoke_frontend
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--mode", "frontend", "--smoke"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        smoke_frontend(1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve_cluster.main(["--smoke"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        shared_prefix.main(["--smoke"])
