@@ -16,8 +16,10 @@ Phases (any failure exits non-zero; nothing is caught and continued):
   3. kernels — each CUDA kernel held against its plain PyTorch version at
                the serve phase's shapes (Qwen1.5-0.5B: H = Hkv = 16,
                hd 64, page 16) and, for the attention kernels, at
-               Qwen2-7B's GQA widths (H 28, Hkv 4, hd 128): attention at
-               fp32 atol = rtol = 2e-5, the copy kernels (int8 quantize /
+               Qwen2-7B's GQA widths (H 28, Hkv 4, hd 128) and the moe
+               phase's OLMoE-1B-7B widths (H = Hkv = 16, hd 128, with
+               block gather on its (16, 2, 160, 16, 16, 128) pool):
+               attention at fp32 atol = rtol = 2e-5, the copy kernels (int8 quantize /
                dequantize of one demoted group of 8 blocks (8, 24, 2, 16,
                16, 64), block gather) bitwise.  The chunked prefill kernel
                (a 512-token prompt ingest against a 1024-position staging
@@ -89,7 +91,29 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                cut) on the serve traffic: evictions, exact streams, the
                serve phase's launch-count and host-sync gates; its wall,
                peak memory and launches printed.
-  9. disagg  — ``serve --pd disagg`` at Qwen1.5-0.5B's full width on the
+  9. moe     — ``launch/serve.py``'s ``serve`` at OLMoE-1B-7B's full
+               published width and depth (16 layers, d_model 2048, 16 / 16
+               heads, hd 128, 64 experts, top-8, d_expert 1024, vocab 50304,
+               QK-norm; 6.92 B fp32 parameters, 27.7 GB, from seed 0) on
+               the serve traffic with the transfer lanes on.  (a) At the
+               dropless capacity factor n_experts / top_k = 8 (a
+               ``dataclasses.replace`` of the config): evictions, every
+               stream equals greedy forward (``last_only`` forwards), the
+               serve phase's launch-count and host-sync gates.  (b) At the
+               published capacity factor 1.25, after one warm-up pass:
+               two runs with identical streams, every request done, the
+               same gates, and the routed slots each packed prefill call
+               dropped, counted by a wrapper around ``moe.moe_forward``
+               (a run with none fails).  The weights are freed after it.
+ 10. families — ``prefill`` + ``decode_step`` against teacher-forced
+               ``forward`` (batch 2, 8 decode steps, fp32): Mamba2-1.3B
+               (48 layers), Hymba-1.5B (32 layers, a 1100-token prompt
+               past its 1024 window), Whisper-small (12 + 12 layers, 1500
+               stub frames), all at full width and depth, and
+               Qwen1.5-MoE-A2.7B at full width cut to 4 layers at its
+               dropless capacity factor (57 GB at full depth): every
+               step's logits within 1e-3 of forward's, the same argmax.
+ 11. disagg  — ``serve --pd disagg`` at Qwen1.5-0.5B's full width on the
                serve traffic: a ``ServiceController`` with GoRouting over
                prefill- and decode-role engines sharing one params dict,
                each request's KV handed over through host memory.  (a) 1
@@ -111,7 +135,7 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                once.  Each pass under the serve phase's launch-count and
                host-sync gates; walls, TTFT / TPOT, handoff blocks, bytes
                and copy time, reservations and peak memory printed.
- 10. sim     — the live coloc engine at Qwen1.5-0.5B's full width over a
+ 12. sim     — the live coloc engine at Qwen1.5-0.5B's full width over a
                profiling schedule of decode-heavy, mixed and prefill-only
                steps (each step's work items and measured latency, as
                ``Engine._profile`` records them): the §4.1 estimator
@@ -125,7 +149,7 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                Then ``replay_sim`` of the frontend phase's trace on that
                executor, twice: identical rows (all but ``wall_s``), every
                request complete.
- 11. frontend — ``ServiceFrontend`` over torch replicas on their
+ 13. frontend — ``ServiceFrontend`` over torch replicas on their
                ``EngineDriver`` threads (``launch/serve.py``
                ``serve_frontend``, the path of ``--mode frontend``): the
                first 64 requests of the industrial trace (3 priority
@@ -414,6 +438,16 @@ def kernels_phase(dev) -> dict:
                     [1, 5, 16, 17, 90, 128, 257, 300, 411, 500, 512, 600,
                      640, 700, 767, 768]),
             prefill=(4, 256, 512, 28, 4, 128, [0, 256, 100, 64])),
+        # the moe phase's attention: 16 / 16 heads of 128 (G 1, hd 128)
+        # on the same buckets, and its pool (16 layers x K/V, 160 blocks)
+        # in the offload snapshot's form
+        "olmoe-1b-7b": dict(
+            decode=(16, 16, 16, 128, 16, 48,
+                    [1, 3, 16, 17, 50, 128, 200, 255, 256, 390, 512, 513,
+                     640, 701, 767, 768]),
+            prefill=(8, 512, 512, 16, 16, 128,
+                     [0, 0, 64, 0, 128, 0, 0, 0]),
+            gather=(16, 160, 16, 16, 128, 8)),
     }
     results["copy"] = copy_kernels(rng, dev)
     for label, c in cases.items():
@@ -479,6 +513,10 @@ def kernels_phase(dev) -> dict:
             lambda q, kp, vp, bt, ln: decode_bound(q, kp, bt, ln))
         if label == "qwen1.5-0.5b":
             results[label].update(slice3_kernels(rng, dev, p_args))
+        if "gather" in c:
+            g = gather_case(rng, *c["gather"], dev)
+            g["bound_ms"], g["bound_by"] = g.pop("bound")
+            results[label]["block_gather"] = g
         for name, r in results[label].items():
             print(f"  {name}: kernel {r['ms']:.4f} ms (warm L2 "
                   f"{r['warm_l2_ms']:.4f} ms), plain "
@@ -487,6 +525,33 @@ def kernels_phase(dev) -> dict:
                   f"[{r['shape']}]", flush=True)
     results["slice 6"] = slice6_kernels(rng, dev)
     return results
+
+
+def gather_case(rng, layers, nblk, bs, hkv, hd, n, dev) -> dict:
+    """block_gather of n blocks from a pool (layers, 2, nblk, bs, hkv,
+    hd) in the offload snapshot's form (block_dim 2): bitwise against its
+    plain version, then timed beside ``index_select``; the bound as
+    ``bound=(ms, by)``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.block_gather import block_gather
+
+    kv = torch.as_tensor(rng.standard_normal((layers, 2, nblk, bs, hkv, hd)),
+                         dtype=torch.float32, device=dev)
+    idx = torch.as_tensor(rng.permutation(nblk)[:n], dtype=torch.int32)
+    idx_dev = idx.to(dev)
+    err = exact(f"block_gather (planes {layers * 2})",
+                block_gather(kv, idx, 2),
+                ref.block_gather_ref(kv, idx_dev, 2).contiguous())
+    g_k, g_p = turns(lambda: block_gather(kv, idx, 2),
+                     lambda: ref.block_gather_ref(kv, idx_dev, 2)
+                     .contiguous())
+    # library: index_select along the block axis moves the same bytes
+    return dict(
+        max_abs_err=err, ms=float(np.mean(g_k)), plain_ms=float(np.mean(g_p)),
+        library_ms=time_ms(lambda: torch.index_select(kv, 2, idx_dev)),
+        warm_l2_ms=time_ms(lambda: block_gather(kv, idx, 2), cold_l2=False),
+        bound=bound(2 * n * layers * 2 * bs * hkv * hd * 4, 0),
+        shape=f"pool {tuple(kv.shape)} block_dim 2, n {n}")
 
 
 def verify_case(rng, n_seg, depth, h, hkv, hd, page, n_pages, maxp, base,
@@ -774,10 +839,6 @@ def copy_kernels(rng, dev) -> dict:
     idx_dev = idx.to(dev)
     g_err = exact("block_gather (planes 1)", block_gather(pool1, idx),
                   ref.block_gather_ref(pool1, idx_dev))
-    kv = torch.as_tensor(rng.standard_normal((lyr, 2, nblk, bs, hkv, hd)),
-                         dtype=torch.float32, device=dev)
-    exact("block_gather (planes 48)", block_gather(kv, idx, 2),
-          ref.block_gather_ref(kv, idx_dev, 2).contiguous())
 
     lib = torch.mul(vals, scales[..., None, None, None])
     torch.cuda.synchronize()
@@ -801,9 +862,6 @@ def copy_kernels(rng, dev) -> dict:
                          lambda: ref.kv_block_quantize_ref(x26))
     d_k, d_p = turns(lambda: kv_block_dequantize(vals, scales),
                      lambda: ref.kv_block_dequantize_ref(vals, scales))
-    g_k, g_p = turns(lambda: block_gather(kv, idx, 2),
-                     lambda: ref.block_gather_ref(kv, idx_dev, 2)
-                     .contiguous())
     g1_k, g1_p = turns(lambda: block_gather(pool1, idx),
                        lambda: ref.block_gather_ref(pool1, idx_dev))
     row_bytes = e * 4
@@ -838,16 +896,8 @@ def copy_kernels(rng, dev) -> dict:
                                cold_l2=False),
             bound=bound(r * e * (1 + 4) + 4 * r, 0),
             shape=f"vals {tuple(vals.shape)} int8"),
-        # the offload snapshot's form; library: index_select along the
-        # block axis moves the same bytes (block axis left in place)
-        "block_gather": dict(
-            max_abs_err=g_err, ms=float(np.mean(g_k)), plain_ms=float(
-                np.mean(g_p)),
-            library_ms=time_ms(lambda: torch.index_select(kv, 2, idx_dev)),
-            warm_l2_ms=time_ms(lambda: block_gather(kv, idx, 2),
-                               cold_l2=False),
-            bound=bound(2 * n * lyr * 2 * row_bytes, 0),
-            shape=f"pool {tuple(kv.shape)} block_dim 2, n {n}"),
+        # the offload snapshot's form: the serve pool, 48 planes
+        "block_gather": gather_case(rng, lyr, nblk, bs, hkv, hd, n, dev),
         "block_gather (planes 1)": dict(
             max_abs_err=g_err, ms=float(np.mean(g1_k)), plain_ms=float(
                 np.mean(g1_p)),
@@ -1175,6 +1225,243 @@ def glm_phase(card: str):
           flush=True)
     res.engine.kill()
     return counts
+
+
+# --------------------------------------------------------------------------
+# moe and families phases: the other model families on the card
+# --------------------------------------------------------------------------
+
+class DropAudit:
+    """Wraps ``moe.moe_forward`` for one run and counts, with the port's
+    own router (``moe.route``), the routed slots dropped by each call on a
+    flat (1, T, d) stream: a packed prefill call makes ``n_layers`` such
+    calls, decode and verify rows are (R, 1, d).  The counts stay on the
+    card until the run is over."""
+
+    def __init__(self, moe, n_layers: int):
+        self.moe, self.inner, self.n_layers = moe, moe.moe_forward, n_layers
+        self.layers: list = []         # (T, dropped slots) per layer call
+
+    def __call__(self, x, p, top_k, capacity_factor=1.25):
+        if x.shape[0] == 1 and x.shape[1] > 1:
+            keep = self.moe.route(x, p, top_k, capacity_factor).keep
+            self.layers.append((x.shape[1], (~keep).sum()))
+        return self.inner(x, p, top_k, capacity_factor)
+
+    def per_call(self) -> list:
+        """(T, slots dropped over the call's layers) per packed prefill."""
+        n = self.n_layers
+        return [(self.layers[i][0],
+                 int(sum(int(d) for _, d in self.layers[i:i + n])))
+                for i in range(0, len(self.layers), n)]
+
+    def __enter__(self):
+        self.moe.moe_forward = self
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.moe_forward = self.inner
+
+
+def moe_phase(card: str, dev="cuda"):
+    """``launch/serve.py``'s ``serve`` at OLMoE-1B-7B's full published
+    width and depth (16 layers, d_model 2048, 16 / 16 heads, hd 128, 64
+    experts, top-8, d_expert 1024, vocab 50304, QK-norm; fp32 weights from
+    ``init_params`` at seed 0) on the serve traffic with the transfer
+    lanes on.  (a) At the dropless capacity factor n_experts / top_k:
+    every stream equals greedy forward under the serve phase's
+    launch-count and host-sync gates, with evictions.  (b) At the
+    published 1.25, twice: identical streams, every request done, the
+    same gates, and slots dropped in the packed prefill calls."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import moe
+    from repro_torch.models.model import init_params
+
+    fresh_peak()
+    t0 = time.monotonic()
+    pub = get("olmoe_1b_7b")
+    exact = dataclasses.replace(pub,
+                                capacity_factor=pub.n_experts / pub.top_k)
+    params = init_params(pub, torch.Generator(dev).manual_seed(0),
+                         device=dev)
+    n_params = sum(t.numel() for t in iter_leaves(params))
+    print(f"  {pub.name}: {n_params} parameters, "
+          f"{n_params * 4 / 1e9:.2f} GB fp32; KV block "
+          f"{serve.block_bytes(pub, serve.FULL, torch.float32) / 2**20:.1f} "
+          f"MiB; init {time.monotonic() - t0:.1f} s", flush=True)
+
+    print(f"  -- (a) exact pass, capacity factor {exact.capacity_factor}",
+          flush=True)
+    ops.reset_launch_counts()
+    t1 = time.monotonic()
+    res = serve.serve(exact, params, serve.FULL, seed=0, device=dev)
+    counts_a = ops.launch_counts()
+    t_serve = time.monotonic() - t1
+    st = res.engine.stats
+    report(res, counts_a, "moe (a)", card)
+    if st.evictions < 1:
+        fail("moe (a): no eviction")
+    check_launches(res, counts_a, "moe (a)")
+    check_streams(res, "moe (a)")
+    streams_a = [res.outputs[r.rid] for r, _ in res.requests]
+    print(f"  [{card}] moe (a): serve {t_serve:.1f} s (wall "
+          f"{res.wall_s:.3f} s); {st.decode_launches} decode launches, "
+          f"{st.packed_prefill_calls} packed prefill calls "
+          f"(paged_decode_attention x{counts_a['paged_decode_attention']}, "
+          f"packed_prefill_attention x{counts_a['packed_prefill_attention']})",
+          flush=True)
+    res.engine.kill()
+    del res
+
+    # the engine's clock is the measured step time and SlideBatching reads
+    # it (deadlines, urgency), so a pass whose first calls are cold can
+    # pack its prefills differently, and capacity drops follow the
+    # packing: one warm-up pass first, then the two gated runs
+    print(f"  -- (b) published capacity factor {pub.capacity_factor}: a "
+          "warm-up pass, then two runs", flush=True)
+    counts_b, streams_b, packs = [], [], []
+    for run in (0, 1, 2):
+        ops.reset_launch_counts()
+        with DropAudit(moe, pub.n_layers) as audit:
+            res = serve.serve(pub, params, serve.FULL, seed=0, device=dev)
+        label = f"moe (b) run {run}" if run else "moe (b) warm-up"
+        streams = [res.outputs[r.rid] for r, _ in res.requests]
+        calls = audit.per_call()
+        if not run:
+            print(f"  {label}: wall {res.wall_s:.3f} s, "
+                  f"{res.engine.stats.iterations} iterations, dropped "
+                  f"slots per packed prefill call {calls}", flush=True)
+            warm_streams = streams
+            res.engine.kill()
+            del res
+            continue
+        counts_b.append(ops.launch_counts())
+        report(res, counts_b[-1], label, card)
+        check_launches(res, counts_b[-1], label)
+        streams_b.append(streams)
+        packs.append([t for t, _ in calls])
+        if len(calls) != res.engine.stats.packed_prefill_calls:
+            fail(f"{label}: {len(calls)} audited calls, "
+                 f"{res.engine.stats.packed_prefill_calls} packed prefills")
+        total = sum(d for _, d in calls)
+        print(f"  {label}: dropped routed slots per packed prefill call "
+              f"(flat tokens: slots over {pub.n_layers} layers) {calls}; "
+              f"total {total}", flush=True)
+        if total < 1:
+            fail(f"{label}: no routed slot dropped: the capacity path was "
+                 "not exercised")
+        res.engine.kill()
+        del res
+    if streams_b[0] != streams_b[1]:
+        fail("moe (b): the two runs' streams differ (packed prefill "
+             f"lengths {'equal' if packs[0] == packs[1] else 'differ'}: "
+             f"{packs[0]} vs {packs[1]})")
+    same = sum(a == b for a, b in zip(streams_a, streams_b[0]))
+    print(f"  moe (b): streams identical in both runs; {same} of "
+          f"{len(streams_a)} equal the dropless pass's, the warm-up's "
+          f"{'too' if warm_streams == streams_b[0] else 'differ'} (not "
+          "gates)", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  [{card}] moe: phase {time.monotonic() - t0:.1f} s; "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB left after "
+          "freeing the weights", flush=True)
+    return counts_a, counts_b[0], counts_b[1]
+
+
+def iter_leaves(tree: dict):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from iter_leaves(v)
+        else:
+            yield v
+
+
+# prefill + decode_step against teacher-forced forward on the card, fp32
+FAMILY_ATOL = 1e-3
+# (arch, prompt length, decode steps, layers kept: None = all)
+FAMILY_CASES = (("mamba2_1_3b", 64, 8, None),
+                ("hymba_1_5b", 1100, 8, None),     # past the 1024 window
+                ("whisper_small", 64, 8, None),    # 1500 stub frames
+                ("qwen2_moe_a2_7b", 64, 8, 4))     # 57 GB at full depth
+
+
+def families_phase(card: str, dev="cuda") -> None:
+    """``prefill`` + ``decode_step`` against teacher-forced ``forward`` for
+    an SSM, a hybrid with its ring cache, an encoder-decoder and an MoE
+    config at full width (qwen2-moe cut to 4 layers), batch 2, fp32
+    weights from ``init_params`` at seed 0: every step's logits within
+    FAMILY_ATOL of forward's, with the same argmax."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.models.model import (decode_step, forward, init_params,
+                                          prefill)
+
+    for arch, s, extra, n_layers in FAMILY_CASES:
+        fresh_peak()
+        t0 = time.monotonic()
+        cfg = get(arch)
+        if n_layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        if cfg.family == "moe":            # dropless: forward = prefill
+            cfg = dataclasses.replace(
+                cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+        params = init_params(cfg, torch.Generator(dev).manual_seed(0),
+                             device=dev)
+        n_params = sum(t.numel() for t in iter_leaves(params))
+        gen = torch.Generator(dev).manual_seed(1)
+        toks = torch.randint(0, cfg.vocab, (2, s + extra), generator=gen,
+                             device=dev)
+        kw = {}
+        if cfg.family == "encdec":
+            kw["enc_inputs"] = torch.randn(
+                (2, cfg.enc_frames, cfg.d_model), generator=gen,
+                device=dev) * 0.02
+        full = forward(cfg, params, toks, **kw)
+        t1 = time.monotonic()
+        lg, cache = prefill(cfg, params, toks[:, :s], max_seq=s + extra,
+                            **kw)
+        steps = [lg]
+        for i in range(extra):
+            lg, cache = decode_step(cfg, params, cache, toks[:, s + i])
+            steps.append(lg)
+        torch.cuda.synchronize()
+        t_serve = time.monotonic() - t1
+        worst, margin = 0.0, float("inf")
+        for i, got in enumerate(steps):
+            want = full[:, s - 1 + i]
+            worst = max(worst, float((got - want).abs().max()))
+            top2 = torch.topk(want, 2).values
+            margin = min(margin, float((top2[:, 0] - top2[:, 1]).min()))
+            if not torch.equal(got.argmax(-1), want.argmax(-1)):
+                fail(f"families {arch}: argmax differs from forward at "
+                     f"step {i}")
+            if not torch.isfinite(got).all():
+                fail(f"families {arch}: non-finite logits at step {i}")
+        if not worst <= FAMILY_ATOL:
+            fail(f"families {arch}: max abs error {worst:.3e} > "
+                 f"{FAMILY_ATOL}")
+        cache_keys = {k: tuple(v.shape) for k, v in cache.items()}
+        print(f"  [{card}] {cfg.name} ({cfg.family}, {cfg.n_layers} "
+              f"layers, {n_params} parameters): prompt {s} + {extra} "
+              f"decode steps, batch 2: max abs error {worst:.3e} "
+              f"(tolerance {FAMILY_ATOL}), argmax equal at all "
+              f"{extra + 1} steps (smallest top-2 margin {margin:.3e}); "
+              f"prefill + decode {t_serve:.2f} s, phase "
+              f"{time.monotonic() - t0:.1f} s, max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"cache {cache_keys}", flush=True)
+        del params, cache, full, steps
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 # |x - dequant(quant(x))| <= scale / 2 exactly; in fp32 three roundings of
@@ -2009,6 +2296,12 @@ def main() -> None:
     phase("glm")
     counts_glm = glm_phase(card)
 
+    phase("moe")
+    counts_moe_a, counts_moe_b1, counts_moe_b2 = moe_phase(card)
+
+    phase("families")
+    families_phase(card)
+
     phase("disagg")
     counts_da, counts_db1, counts_db2, counts_dc = disagg_phase(card)
 
@@ -2049,13 +2342,16 @@ def main() -> None:
     }
     # launches: the main paths' runs (serve with the lanes on and off,
     # tiered (a), tiered (b), spec with both drafts, per-request, glm, the
-    # disagg passes, the sim phase's profile, the frontend passes), each
+    # moe passes, the disagg passes, the sim phase's profile, the frontend
+    # passes), each
     # read right after its run with the counts set to 0 just before it
     runs = {"serve": counts, "serve, lanes off": counts_off,
             "tiered (a)": counts_a, "tiered (b)": counts_b,
             "spec, same draft": counts_same,
             "spec, other draft": counts_other, "per-request": counts_pr,
-            "glm": counts_glm, "disagg (a)": counts_da,
+            "glm": counts_glm, "moe (a)": counts_moe_a,
+            "moe (b) run 1": counts_moe_b1, "moe (b) run 2": counts_moe_b2,
+            "disagg (a)": counts_da,
             "disagg (b) run 1": counts_db1, "disagg (b) run 2": counts_db2,
             "disagg (c)": counts_dc, "sim profile": counts_sim,
             **counts_fe}

@@ -3,9 +3,11 @@
 
 Plain functions, same names, same layouts and the same float32 upcasts as
 the JAX reference: attention tensors are ``(B, S, heads, head_dim)`` and
-normalisation computes in float32 before casting back.  Only the dense
-attention core is ported; the serving path's attention runs in the
-kernels of ``repro_torch.kernels``.
+normalisation computes in float32 before casting back.  The serving
+path's attention runs in the kernels of ``repro_torch.kernels``;
+``dense_attention`` / ``chunked_attention`` are the full-sequence cores
+of ``models.model``'s ``forward`` and ``decode_attention`` the core of
+its ``decode_step``.
 """
 from __future__ import annotations
 
@@ -76,9 +78,28 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return torch.cat([y.to(x.dtype), x_pass], dim=-1)
 
 
+def sinusoidal_positions(seq: int, d: int, dtype=torch.float32,
+                         device=None) -> torch.Tensor:
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(1e4, dim / d)
+    pe = torch.zeros((seq, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(ang)
+    pe[:, 1::2] = torch.cos(ang[:, : (d // 2)])
+    return pe.to(dtype)
+
+
 # --------------------------------------------------------------------------
-# attention core
+# attention cores
 # --------------------------------------------------------------------------
+
+def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
+    """(B, S, Hkv, D) -> (B, S, Hkv*groups, D) for GQA."""
+    if groups == 1:
+        return k
+    b, s, h, d = k.shape
+    return k[:, :, :, None, :].expand(b, s, h, groups, d).reshape(
+        b, s, h * groups, d)
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     *, causal: bool = True, q_offset: int = 0,
@@ -112,6 +133,76 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(b, sq, h, d)
 
 
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      *, causal: bool = True, q_offset: int = 0,
+                      window: int = 0, kv_chunk: int = 512) -> torch.Tensor:
+    """Flash-style attention: a loop over KV chunks with an online softmax,
+    so the (Sq, Skv) score matrix is never materialized.  Assumes
+    un-padded contiguous KV."""
+    b, sq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    groups = h // hkv
+    nchunks = -(-skv // kv_chunk)
+    pad = nchunks * kv_chunk - skv
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    q_pos = torch.arange(sq, device=q.device) + q_offset
+    scale = 1.0 / math.sqrt(d)
+    m = torch.full((b, h, sq), -math.inf, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
+    for ci in range(nchunks):
+        kb = _repeat_kv(k[:, ci * kv_chunk:(ci + 1) * kv_chunk], groups)
+        vb = _repeat_kv(v[:, ci * kv_chunk:(ci + 1) * kv_chunk], groups)
+        s = torch.einsum("bqhd,bkhd->bhqk", q, kb).float() * scale
+        k_pos = ci * kv_chunk + torch.arange(kv_chunk, device=q.device)
+        mask = (k_pos[None, :] < skv).expand(sq, kv_chunk)
+        if causal:
+            mask = mask & (q_pos[:, None] >= k_pos[None, :])
+        if window > 0:
+            mask = mask & (q_pos[:, None] - k_pos[None, :] < window)
+        s = s.masked_fill(~mask, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p.to(q.dtype), vb).float()
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.to(q.dtype).transpose(1, 2)                    # (B,Sq,H,D)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, kv_len: torch.Tensor, *,
+                     window: int = 0) -> torch.Tensor:
+    """Single-step decode over a padded contiguous cache.
+
+    q: (B, 1, H, D); caches: (B, Smax, Hkv, D); kv_len: (B,) valid
+    lengths.  With ``window`` > 0 only the trailing ``window`` positions
+    attend.  GQA contracts q as (B, Hkv, G, D) against the un-repeated
+    cache."""
+    b, _, h, d = q.shape
+    skv, hkv = k_cache.shape[1], k_cache.shape[2]
+    g = h // hkv
+    q5 = q.reshape(b, hkv, g, d)
+    s = torch.einsum("bkgd,bskd->bkgs", q5, k_cache).float()
+    s = s / math.sqrt(d)                                      # (B,Hkv,G,Skv)
+    k_pos = torch.arange(skv, device=q.device)[None, :]
+    valid = k_pos < kv_len[:, None]
+    if window > 0:
+        valid = valid & (k_pos >= kv_len[:, None] - window)
+    s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bkgs,bskd->bkgd", p.to(q.dtype), v_cache)
+    o = o / l[..., 0][..., None].to(q.dtype)
+    return o.reshape(b, 1, h, d)
+
+
 # --------------------------------------------------------------------------
 # MLPs
 # --------------------------------------------------------------------------
@@ -126,3 +217,17 @@ def gelu_mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(x @ p["w_up"] + p["b_up"], approximate="tanh")
     return h @ p["w_down"] + p["b_down"]
+
+
+# --------------------------------------------------------------------------
+# parameter init
+# --------------------------------------------------------------------------
+
+def dense_init(generator: torch.Generator, shape: tuple, scale: float,
+               dtype=torch.float32, device="cpu") -> torch.Tensor:
+    """N(0, 1) * ``scale``, drawn in fp32 and cast to ``dtype`` (the
+    reference's ``dense_init``; its fan-in scale is passed explicitly,
+    since the port stacks layers on a leading axis)."""
+    t = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=device) * scale
+    return t.to(dtype)

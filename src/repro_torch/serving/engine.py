@@ -79,7 +79,7 @@ from ..core.blocks import BlockManager, blocks_for
 from ..core.estimator import BatchLatencyEstimator
 from ..core.request import Phase, Request
 from ..kernels import ops
-from ..models.model import ArchConfig, require_dense, resolve_device
+from ..models.model import ArchConfig, resolve_device
 from . import model_exec
 from .kv_pool import PagedKVPool
 from .prefix_cache import RadixPrefixCache
@@ -254,7 +254,7 @@ class Engine:
             raise ValueError(f"unknown engine role: {role!r}")
         if eng_cfg.spec_k > 0 and spec_draft is None:
             raise ValueError("spec_k > 0 requires spec_draft=(cfg, params)")
-        require_dense(cfg)
+        model_exec.require_paged(cfg)
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params are on {params['embed'].device}, the "

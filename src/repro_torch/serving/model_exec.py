@@ -32,13 +32,28 @@ import torch
 from ..kernels.ops import (chunked_prefill_attention,
                            packed_prefill_attention, packed_verify_attention,
                            paged_decode_attention)
-from ..models.layers import apply_norm, apply_rope, gelu_mlp, swiglu
-from ..models.model import ArchConfig, _qkv, layer_params, require_dense
+from ..models.layers import apply_norm, apply_rope
+from ..models.model import ArchConfig, _ffn, _qkv, layer_params
+
+# the families whose layers are attention + feed-forward, all of their
+# KV in the paged pool.  The feed-forward (``_ffn``: routed experts or
+# the dense MLP) computes MoE capacity per batch row, so the activation
+# shapes below decide it: (R, 1, d) for decode and verify (per request),
+# (1, c, d) for a chunk, (1, t_b, d) for the packed stream with its
+# padding (padding tokens route like any other).
+PAGED_FAMILIES = ("dense", "moe")
 
 
-def _mlp(cfg: ArchConfig, lp: dict, h: torch.Tensor) -> torch.Tensor:
-    return swiglu(h, lp["mlp"]) if cfg.act == "swiglu" \
-        else gelu_mlp(h, lp["mlp"])
+def require_paged(cfg: ArchConfig) -> None:
+    """The paged engine serves the attention families.  An SSM layer has
+    no attention (its state is not paged KV), a hybrid layer would run
+    its attention half only, an enc-dec decoder needs its cross-attention
+    cache: those are served by ``models.model``'s ``prefill`` /
+    ``decode_step``."""
+    if cfg.family not in PAGED_FAMILIES:
+        raise NotImplementedError(
+            f"the paged engine serves the {' and '.join(PAGED_FAMILIES)} "
+            f"families; {cfg.name!r} is {cfg.family!r}")
 
 
 def _rope(cfg: ArchConfig, q, k, positions):
@@ -56,7 +71,6 @@ def _one_token_forward(cfg: ArchConfig, params: dict, pool_kv: torch.Tensor,
     lens: (R,) int32 context BEFORE the token.  Per layer every row's K/V
     is written in place BEFORE attention, then ``attend(q, k_pages,
     v_pages, lens + 1)`` reads it back.  Returns the logits (R, V)."""
-    require_dense(cfg)
     r = tokens.shape[0]
     bs = pool_kv.shape[3]
     x = params["embed"][tokens.long()][:, None, :].to(pool_kv.dtype)
@@ -77,7 +91,7 @@ def _one_token_forward(cfg: ArchConfig, params: dict, pool_kv: torch.Tensor,
         o = attend(q[:, 0].contiguous(), layer_kv[0], layer_kv[1], lens1)
         x = x + (o.reshape(r, -1) @ lp["attn"]["wo"])[:, None]
         h2 = apply_norm(x, lp["ln2"], cfg.norm)
-        x = x + _mlp(cfg, lp, h2)
+        x = x + _ffn(cfg, lp, h2)
     x = apply_norm(x, params["ln_f"], cfg.norm)
     return (x @ params["lm_head"].T)[:, 0]
 
@@ -161,7 +175,6 @@ def prefill_chunk(cfg: ArchConfig, params: dict, pool_kv: torch.Tensor,
     ``max_ctx / bs`` table entries are staged contiguously and the chunk
     attends to them with ``cache_lens = ctx + c``.  Returns (logits
     (1, c, V), the updated pool)."""
-    require_dense(cfg)
     c = tokens.shape[1]
     bs = pool_kv.shape[3]
     hkv, hd = cfg.n_kv_heads, cfg.hd
@@ -189,7 +202,7 @@ def prefill_chunk(cfg: ArchConfig, params: dict, pool_kv: torch.Tensor,
                                       cache_lens)
         x = x + o.reshape(1, c, -1) @ lp["attn"]["wo"]
         h2 = apply_norm(x, lp["ln2"], cfg.norm)
-        x = x + _mlp(cfg, lp, h2)
+        x = x + _ffn(cfg, lp, h2)
     x = apply_norm(x, params["ln_f"], cfg.norm)
     return x @ params["lm_head"].T, pool_kv
 
@@ -226,7 +239,6 @@ def prefill_packed(cfg: ArchConfig, params: dict, pool_kv: torch.Tensor,
       smax, sq:        staging length / chunk-pad length
 
     Returns (last-position logits per segment (S, V), the updated pool)."""
-    require_dense(cfg)
     t_len = tokens.shape[1]
     n_seg = tables.shape[0]
     hkv, hd = cfg.n_kv_heads, cfg.hd
@@ -256,7 +268,7 @@ def prefill_packed(cfg: ArchConfig, params: dict, pool_kv: torch.Tensor,
         o_flat = o_ext[q_rows, q_cols]                        # (T, H, hd)
         x = x + (o_flat.reshape(t_len, -1) @ lp["attn"]["wo"])[None]
         h2 = apply_norm(x, lp["ln2"], cfg.norm)
-        x = x + _mlp(cfg, lp, h2)
+        x = x + _ffn(cfg, lp, h2)
     x = apply_norm(x, params["ln_f"], cfg.norm)
     # only each segment's LAST chunk token can be sampled
     x_last = x[0, last_idx.long()]                            # (S, d)

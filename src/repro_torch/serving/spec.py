@@ -33,7 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models.model import ArchConfig, require_dense
+from ..models.model import ArchConfig
 from . import model_exec
 from .kv_pool import PagedKVPool
 
@@ -46,7 +46,7 @@ class DraftRunner:
     def __init__(self, cfg: ArchConfig, params: dict, *,
                  num_blocks: int = 512, block_size: int = 16,
                  max_ctx: int = 1024, dtype=torch.float32, device="cuda"):
-        require_dense(cfg)
+        model_exec.require_paged(cfg)
         self.cfg = cfg
         self.params = params
         self.pool = PagedKVPool(cfg, num_blocks, block_size, dtype=dtype,

@@ -3,8 +3,9 @@ package's full-sequence ``forward`` on the same parameters and prompts:
 token for token, on the ``tests/test_engine_real.py`` scenarios (plain,
 preemption, sync offload / recompute-only), the per-request prefill and
 logits-decode paths (``packed_prefill=False``, ``fused_decode=False``),
-the port's two-wave serve traffic (prefix-cache hits), and the model
-families that are not ported yet raising ``NotImplementedError``.  The
+the port's two-wave serve traffic (prefix-cache hits), and the families
+the paged engine does not serve (SSM, hybrid, enc-dec) raising
+``NotImplementedError``.  The
 engine runs with its default background transfer lanes
 (``overlap_transfers=True``) unless a test says otherwise."""
 import jax
@@ -234,9 +235,13 @@ def test_unported_spec_k_and_families_raise():
     with pytest.raises(ValueError, match="spec_draft"):
         Engine(TCFG, TPARAMS, EngineConfig(spec_k=2), SlideBatching(),
                device="cpu")
-    moe = t_get_smoke("qwen2_moe_a2_7b")
-    with pytest.raises(NotImplementedError):
-        Engine(moe, TPARAMS, EngineConfig(), SlideBatching(), device="cpu")
+    # the paged engine serves the attention families (dense, moe): an SSM
+    # layer has no attention, a hybrid would run its attention half only,
+    # an enc-dec decoder needs its cross-attention cache
+    for arch in ("mamba2_1_3b", "hymba_1_5b", "whisper_small"):
+        with pytest.raises(NotImplementedError, match="paged engine"):
+            Engine(t_get_smoke(arch), TPARAMS, EngineConfig(),
+                   SlideBatching(), device="cpu")
     with pytest.raises(ValueError):
         make_engine(role="router")
     from repro_torch.serving import PagedKVPool

@@ -14,6 +14,8 @@ from repro_torch.kernels.kv_quant import kv_block_dequantize, kv_block_quantize
 from repro_torch.kernels.paged_attention import paged_decode_attention
 from repro_torch.kernels.spec_verify import packed_verify_attention
 
+from _torch_port_util import DropCount
+
 pytestmark = pytest.mark.gpu
 
 
@@ -957,3 +959,133 @@ def test_frontend_disagg_pair_on_card(cuda):
     assert s["handoffs_out"] == s["handoffs_in"] == s["handoffs"] \
         == crossing > 0
     assert res.frontend.book.reservations == {}
+
+
+# ---------------------------------------------------------------------------
+# other model families (slice 9): MoE served by the engine, SSM / hybrid /
+# enc-dec / MoE prefill + decode_step, at full width cut to two layers
+# ---------------------------------------------------------------------------
+
+def moe_config(arch, cf=None, n_layers=2):
+    import dataclasses
+
+    from repro_torch.configs import get
+    cfg = get(arch)
+    cf = cfg.n_experts / cfg.top_k if cf is None else cf
+    return dataclasses.replace(cfg, n_layers=n_layers, capacity_factor=cf)
+
+
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "qwen2_moe_a2_7b"])
+def test_moe_engine_on_card_matches_greedy_forward(cuda, arch):
+    """A full-width MoE model cut to two layers at its dropless capacity
+    factor (E / k), smoke traffic: every stream equals greedy decoding by
+    the port's forward, each attention kernel launched once per layer per
+    engine launch, host syncs one per launch."""
+    from repro_torch.launch import serve
+    from repro_torch.models.model import greedy_generate, init_params
+
+    cfg = moe_config(arch)
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                         device=cuda)
+    ops.reset_launch_counts()
+    res = serve.serve(cfg, params, serve.SMOKE, device=cuda)
+    counts = ops.launch_counts()
+    st = res.engine.stats
+    assert st.evictions > 0
+    assert counts["paged_decode_attention"] == cfg.n_layers * \
+        st.decode_launches > 0
+    assert counts["packed_prefill_attention"] == cfg.n_layers * \
+        st.packed_prefill_calls > 0
+    assert st.host_syncs == st.decode_launches + st.packed_prefill_calls
+    for r, prompt in res.requests:
+        assert res.engine.outputs[r.rid] == greedy_generate(
+            cfg, params, prompt, r.output_len)
+    res.engine.kill()
+
+
+def test_moe_engine_on_card_with_drops_is_deterministic(cuda, monkeypatch):
+    """OLMoE at its published capacity factor 1.25 (two layers, full
+    width), smoke traffic twice: identical streams, every request done,
+    and the packed prefill calls dropped routed slots."""
+    from repro_torch.launch import serve
+    from repro_torch.models.model import init_params
+
+    cfg = moe_config("olmoe_1b_7b", cf=1.25)
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                         device=cuda)
+    drops = DropCount(monkeypatch)
+    streams = []
+    for _ in range(2):
+        res = serve.serve(cfg, params, serve.SMOKE, device=cuda)
+        streams.append([res.engine.outputs[r.rid] for r, _ in res.requests])
+        res.engine.kill()
+    assert streams[0] == streams[1]
+    assert drops.dropped > 0
+
+
+@pytest.mark.parametrize("cf", [8.0, 1.25, 1.0])
+def test_moe_forward_on_card_matches_cpu(cuda, cf):
+    """``moe_forward`` at OLMoE's expert widths (64 experts, top-8, d 2048,
+    d_expert 1024) on a 300-token stream of unit-RMS rows (as ``ln2``
+    gives): the same kept slots on the card as on the CPU, and outputs
+    within 1e-5 of the output's largest magnitude (~1e2 at these
+    weights' scales; the fp32 GEMMs over 2048 and 1024 round
+    differently on the two devices)."""
+    from repro_torch.models import moe
+    from repro_torch.models.model import init_params
+
+    cfg = moe_config("olmoe_1b_7b", cf=cf, n_layers=1)
+    p = init_params(cfg, torch.Generator().manual_seed(0),
+                    device="cpu")["layers"]["moe"]
+    p = {k: v[0] for k, v in p.items()}
+    x = torch.randn((1, 300, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    want = moe.moe_forward(x, p, cfg.top_k, cf)
+    pc = {k: v.to(cuda) for k, v in p.items()}
+    got = moe.moe_forward(x.to(cuda), pc, cfg.top_k, cf)
+    keep = moe.route(x, p, cfg.top_k, cf).keep
+    assert torch.equal(moe.route(x.to(cuda), pc, cfg.top_k, cf).keep.cpu(),
+                       keep)
+    assert bool(keep.all()) == (cf == 8.0)
+    torch.testing.assert_close(got.cpu(), want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("arch", ["mamba2_1_3b", "hymba_1_5b",
+                                  "whisper_small", "qwen2_moe_a2_7b"])
+def test_families_prefill_decode_on_card_match_forward(cuda, arch):
+    """Full width cut to two layers: ``prefill`` + ``decode_step`` logits
+    within 1e-3 of teacher-forced ``forward`` with the same argmax (the
+    hybrid's prompt longer than its 1024 window; whisper on 1500 stub
+    frames; the MoE at its dropless capacity factor)."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.models.model import decode_step, forward, init_params, \
+        prefill
+
+    cfg = dataclasses.replace(get(arch), n_layers=2)
+    if cfg.family == "moe":
+        cfg = moe_config(arch)
+    if cfg.family == "encdec":
+        cfg = dataclasses.replace(cfg, n_enc_layers=2)
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                         device=cuda)
+    gen = torch.Generator(cuda).manual_seed(1)
+    s = cfg.window + 40 if cfg.window else 40
+    toks = torch.randint(0, cfg.vocab, (2, s + 4), generator=gen,
+                         device=cuda)
+    kw = {}
+    if cfg.family == "encdec":
+        kw["enc_inputs"] = torch.randn((2, cfg.enc_frames, cfg.d_model),
+                                       generator=gen, device=cuda) * 0.02
+    full = forward(cfg, params, toks, **kw)
+    lg, cache = prefill(cfg, params, toks[:, :s], max_seq=s + 4, **kw)
+    steps = [lg]
+    for i in range(4):
+        lg, cache = decode_step(cfg, params, cache, toks[:, s + i])
+        steps.append(lg)
+    for i, got in enumerate(steps):
+        want = full[:, s - 1 + i]
+        torch.testing.assert_close(got, want, atol=1e-3, rtol=0)
+        assert torch.equal(got.argmax(-1), want.argmax(-1))

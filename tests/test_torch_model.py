@@ -6,7 +6,7 @@ import pytest
 import torch
 
 import repro.models.layers as JL
-from repro.configs import get_smoke
+from repro.configs import ARCH_IDS, get_smoke
 from repro.models import forward as jax_forward
 from repro_torch.configs import get_smoke as t_get_smoke
 from repro_torch.models import layers as TL
@@ -141,8 +141,32 @@ def test_init_params_has_the_reference_layout():
     assert abs(got["embed"].std() / 0.02 - 1.0) < 0.1
 
 
-@pytest.mark.parametrize("arch", ["qwen2_moe_a2_7b", "mamba2_1_3b",
-                                  "whisper_small"])
-def test_other_families_are_not_ported(arch):
-    with pytest.raises(NotImplementedError):
-        init_params(t_get_smoke(arch), torch.Generator(), device="cpu")
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_family_initialises_with_the_reference_tree(arch):
+    """All twelve SMOKE configs (dense, MoE, SSM, hybrid, enc-dec) build
+    the reference's tree: the same keys and leaf shapes, fp32 (the SSM's
+    ``A_log`` / ``D`` / ``dt_bias`` too), biases 0 and norm scales 1."""
+    ref = perturbed_numpy_params(get_smoke(arch))
+    got = init_params(t_get_smoke(arch), torch.Generator().manual_seed(0),
+                      device="cpu")
+
+    def shapes(t):
+        return {k: shapes(v) if isinstance(v, dict) else tuple(v.shape)
+                for k, v in t.items()}
+    assert shapes(got) == shapes(ref)
+    leaves = []
+
+    def visit(t, path=()):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                visit(v, path + (k,))
+            else:
+                leaves.append((path + (k,), v))
+    visit(got)
+    assert all(v.dtype == torch.float32 for _, v in leaves)
+    for path, v in leaves:
+        if path[-1] in ("scale", "q_norm", "k_norm", "D", "norm_scale"):
+            assert (v == 1).all(), path
+        elif path[-1] in ("b_up", "b_down", "bq", "bk", "bv", "bias",
+                          "conv_b", "A_log", "dt_bias"):
+            assert (v == 0).all(), path

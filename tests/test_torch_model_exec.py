@@ -2,7 +2,10 @@
 and ``prefill_chunk`` of the port against the JAX package's
 ``serving.model_exec`` on the same pool, tables and inputs: equal argmax
 tokens, logits and the updated pool allclose at 1e-5 — including the
-padding rows, whose writes land in the null block 0."""
+padding rows, whose writes land in the null block 0; the MoE configs
+with and without capacity drops."""
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,19 +22,26 @@ from _torch_port_util import jax_tree, perturbed_numpy_params
 BS = 16
 NUM_BLOCKS = 24
 # Qwen1.5-0.5B and Qwen2-7B, then the dense configs whose SMOKE variants
-# have head_dim 8
+# have head_dim 8, then the MoE configs: dropless (their SMOKE capacity
+# factor E / k) and at cf 1.0, where slots drop (":cf1.0")
 ARCHS = ["qwen1_5_0_5b", "qwen2_7b", "chameleon_34b", "chatglm3_6b",
-         "deepseek_coder_33b", "phi4_mini_3_8b", "qwen3_32b"]
+         "deepseek_coder_33b", "phi4_mini_3_8b", "qwen3_32b",
+         "olmoe_1b_7b", "qwen2_moe_a2_7b", "olmoe_1b_7b:cf1.0",
+         "qwen2_moe_a2_7b:cf1.0"]
 
 
 def setup(arch, seed):
-    cfg = get_smoke(arch)
+    arch, _, cf = arch.partition(":cf")
+    cfg, tcfg = get_smoke(arch), t_get_smoke(arch)
+    if cf:
+        cfg = dataclasses.replace(cfg, capacity_factor=float(cf))
+        tcfg = dataclasses.replace(tcfg, capacity_factor=float(cf))
     tree = perturbed_numpy_params(cfg, seed)
     rng = np.random.default_rng(seed)
     pool = (0.5 * rng.standard_normal(
         (cfg.n_layers, 2, NUM_BLOCKS, BS, cfg.n_kv_heads, cfg.hd))
     ).astype(np.float32)
-    return (cfg, t_get_smoke(arch), jax_tree(tree),
+    return (cfg, tcfg, jax_tree(tree),
             params_from_numpy(tree, device="cpu"), pool, rng)
 
 
