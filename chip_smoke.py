@@ -168,6 +168,35 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                priority, SLO attainment, TDG_Ratio, per-replica
                iterations, wall, peak memory and the sim's row for the
                same trace printed.
+ 14. train   — the training path (``repro_torch.training`` through
+               ``models.model.forward_train``; plain autograd, no CUDA
+               kernel of the port, none launched) at Qwen1.5-0.5B's full
+               published width and depth, fp32, weights from seed 0.
+               (a) One step's loss and every gradient leaf on the card
+               against the same step on this machine's CPU from the same
+               weights (2 x 256 tokens, cut from 8 x 512 by the CPU's
+               time): loss rel 1e-5, each leaf within 1e-4 of its max
+               |g|.  (b) ``launch/train.py``'s ``train``: 12 steps of 8 x
+               512 cycling 3 batches at lr 1e-3, the last loss below 0.9x
+               the first; step time (median after the first), tokens/s,
+               FLOP share of the fp32 peak and peak memory printed.  (c)
+               microbatches 2 = 1 on one 8 x 512 batch: loss and grad
+               norm rel 1e-5, params 1e-4 but where the gradient is at
+               fp32 noise (<= 1e-5 of its leaf's max |g|: AdamW's first
+               step moves those ~lr either way), 2 lr; the count of such
+               entries printed.  (d) remat gradients within 1e-6 of each
+               leaf's max |g| of the plain ones; bitwise equality and
+               each run's peak memory printed.  (e) int8 error-feedback
+               gradients, 10 steps cycling 2 batches: the loss falls.
+               (f) 2 steps, ``save_async``, 2 more while it writes, then
+               restore into fresh tensors and redo those 2: params and
+               moments within 1e-6 of the uninterrupted run.  (g)
+               OLMoE-1B-7B (4 of 16 layers), Mamba2-1.3B and Hymba-1.5B
+               (8 x 512 in SSD chunks of 16: at the configs' 256 the
+               reference's ``_segsum_decay`` gives NaN gradients, whose
+               count is printed) and Whisper-small (8 x 448 over 1500
+               frames), full width, remat on, lr 1e-5, 3 steps on one
+               batch: loss and gradient norm finite, the loss falls.
 
 fp32 matmuls run in full fp32: TF32 is switched off for cuBLAS and cuDNN.
 The last two lines are the ``{"kernels": ...}`` JSON and the
@@ -2042,6 +2071,405 @@ def frontend_phase(card: str, est, sim_row: dict, params, dev="cuda"):
     return out
 
 
+# --------------------------------------------------------------------------
+# train phase: the training path at Qwen1.5-0.5B's full width
+# --------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen1_5_0_5b"
+TRAIN_BATCH, TRAIN_SEQ = 8, 512
+# Adam moves each weight ~lr a step: at full width 1e-3 takes the loss of
+# three cycled batches below 0.9x its first value within 12 steps
+TRAIN_LR = 1e-3
+TRAIN_STEPS = 12
+# (a) runs the step on this machine's CPU as well: 2 x 256 tokens (cut
+# from 8 x 512 by the CPU's time), full width and depth
+CARD_CPU_BATCH, CARD_CPU_SEQ = 2, 256
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_REL = 1e-4          # (a): of each leaf's max |g|
+ACCUM_PARAM_ATOL = 1e-4        # (c): tests/test_training.py's
+# (c): AdamW's first step moves a weight by ~lr * sign(g) whatever |g|
+# (m / sqrt(v) = g / |g|), so where a gradient entry is at fp32 noise
+# (within 1e-5 of its leaf's max |g|, about (a)'s card / CPU agreement)
+# the two summation orders may step it either way: those entries (11 of
+# 620 M in the first card runs, all with |g| <= 6.4e-7 of their leaf's
+# max) are held to 2 lr, the most two first steps can differ by
+ACCUM_NOISE_REL = 1e-5
+REMAT_GRAD_REL = 1e-6          # (d): of each leaf's max |g|
+RESTART_ATOL = 1e-6            # (f): tests/test_training.py:126
+RESTART_STEPS = (2, 4)         # (f): checkpoint after 2 of 4 steps
+# (g): (arch, batch, seq, layers kept (None: all), steps), remat on, at
+# FAMILY_LR: these deep stacks at init overshoot with Adam's first steps
+# (at 1e-3 one step took Mamba2's loss from 11.29 to 16.42; at 1e-4
+# Hymba's rose 10.70 -> 15.22 in 3 steps, at 3e-5 10.70 -> 8.25 ->
+# 11.42; at 1e-5 all four fell every step).  OLMoE: 4 of 16 layers (its
+# full training state is ~138 GB).  Whisper: its decoder's 448 positions
+# over the 1500 stub frames.
+FAMILY_LR = 1e-5
+TRAIN_FAMILIES = (("olmoe_1b_7b", 8, 512, 4, 3),
+                  ("mamba2_1_3b", 8, 512, None, 3),
+                  ("hymba_1_5b", 8, 512, None, 3),
+                  ("whisper_small", 8, 448, None, 3))
+# The SSD chunk of (g)'s Mamba2 and Hymba.  Within a chunk the
+# reference's _segsum_decay takes exp of up to the chunk's summed dt,
+# which passes 88.7 (fp32 overflow) from ~64 tokens at these widths, and
+# its backward then turns inf into NaN (ROADMAP Queue 3 item 8): with the
+# configs' 256 no step past ~64 tokens has a finite gradient, in either
+# package.  A frequent token repeats its dt down a chunk, so even chunks
+# of 32 reached an exponent of 52 on two full-width Hymba layers (and
+# NaN at 32 layers on the card).  Chunking is exact: 16-token chunks
+# compute the same function and gradient (chunk 32 was 4.4e-6 of a
+# leaf's max |g| from 256 where 256 is finite, on the CPU), with
+# exponents of at most 15 dt; (g) also prints the configs' chunk's
+# non-finite gradient leaves, not gated
+FAMILY_SSM_CHUNK = 16
+
+
+def named_leaves(tree: dict, prefix: str = ""):
+    """(path, tensor) in the tree's flattening order (sorted keys)."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from named_leaves(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, v
+
+
+def max_abs_diff(a: dict, b: dict) -> float:
+    return max(float((x - y.to(x.device)).abs().max()) for (_, x), (_, y)
+               in zip(named_leaves(a), named_leaves(b)))
+
+
+def train_flops(cfg, params: dict, batch: int, seq: int) -> float:
+    """One step's operations: 6 N T over the matmul weights (every layer
+    leaf and lm_head; the embedding is a gather), plus the attention's
+    score and value products over the full S x S tile the dense core
+    computes, 4 B S^2 H hd per layer forward, three times with the
+    backward."""
+    n = sum(t.numel() for t in iter_leaves(params["layers"])) \
+        + params["lm_head"].numel()
+    attn = 4 * batch * seq * seq * cfg.n_heads * cfg.hd * cfg.n_layers
+    return 6.0 * n * batch * seq + 3.0 * attn
+
+
+def train_phase(card: str, dev="cuda") -> None:
+    """The training path (``repro_torch.training`` through
+    ``models.model.forward_train``, ``launch/train.py``'s loop) at
+    Qwen1.5-0.5B's full published width and depth, fp32, TF32 off, random
+    weights from seed 0; then the other families.  No CUDA kernel of the
+    port lies on this path (plain autograd, as the reference)."""
+    import tempfile
+    from statistics import median
+
+    from repro_torch.configs import get
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+    from repro_torch.models.convert import params_from_numpy, params_to_numpy
+    from repro_torch.models.model import init_params
+    from repro_torch.training import (CheckpointManager, TokenPipeline,
+                                      adamw_update, init_adamw,
+                                      make_train_step)
+    from repro_torch.training.train import make_loss_fn, value_and_grad
+
+    t_phase = time.monotonic()
+    ops.reset_launch_counts()
+    cfg = get(TRAIN_ARCH)
+
+    def on(b: dict, where) -> dict:
+        return {k: torch.as_tensor(v).to(where) for k, v in b.items()}
+
+    def fresh(seed: int = 0):
+        return init_params(cfg, torch.Generator(dev).manual_seed(seed),
+                           device=dev)
+
+    def release() -> None:
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (a) one step on the card and on this machine's CPU, same weights
+    t0 = time.monotonic()
+    params = fresh()
+    n_params = sum(t.numel() for t in iter_leaves(params))
+    host = params_from_numpy(params_to_numpy(params), device="cpu")
+    b = TokenPipeline(cfg.vocab, CARD_CPU_BATCH, CARD_CPU_SEQ,
+                      seed=0).batch_at(0)
+    grad_fn = value_and_grad(make_loss_fn(cfg, remat=False))
+    loss_c, g_c = grad_fn(params, *on(b, dev).values())
+    torch.cuda.synchronize()
+    t1 = time.monotonic()
+    loss_h, g_h = grad_fn(host, *on(b, "cpu").values())
+    t_cpu = time.monotonic() - t1
+    loss_c, loss_h = float(loss_c), float(loss_h)
+    if not abs(loss_c - loss_h) <= TRAIN_LOSS_RTOL * abs(loss_h):
+        fail(f"train (a): loss {loss_c} on the card, {loss_h} on the CPU")
+    worst, worst_name, over = 0.0, "", []
+    for (name, x), (_, y) in zip(named_leaves(g_c), named_leaves(g_h)):
+        x = x.cpu()
+        if not torch.isfinite(x).all():
+            fail(f"train (a): non-finite gradient of {name} on the card")
+        scale, err = float(y.abs().max()), float((x - y).abs().max())
+        if not err <= TRAIN_GRAD_REL * scale:
+            over.append(f"{name} {err:.3e} of max |g| {scale:.3e}")
+        if scale > 0 and err / scale > worst:
+            worst, worst_name = err / scale, name
+    if over:
+        fail(f"train (a): gradients beyond {TRAIN_GRAD_REL} x max |g|: "
+             + "; ".join(over))
+    p_c, _ = adamw_update(g_c, init_adamw(params), params, lr=TRAIN_LR)
+    p_h, _ = adamw_update(g_h, init_adamw(host), host, lr=TRAIN_LR)
+    step_diff = max_abs_diff(p_h, p_c)
+    print(f"  [{card}] train (a) {cfg.name}, full width and depth "
+          f"({cfg.n_layers} layers, {n_params} fp32 parameters), batch "
+          f"{CARD_CPU_BATCH} x {CARD_CPU_SEQ}: loss card {loss_c:.7f}, "
+          f"CPU {loss_h:.7f} (rel {TRAIN_LOSS_RTOL}); worst gradient leaf "
+          f"{worst_name} at {worst:.3e} of its max |g| (gate "
+          f"{TRAIN_GRAD_REL}); params after one AdamW step (lr "
+          f"{TRAIN_LR}) within {step_diff:.3e} (not gated: entries with "
+          f"gradients at fp32 noise move ~lr either way, see (c)); CPU "
+          f"value_and_grad "
+          f"{t_cpu:.1f} s; (a) {time.monotonic() - t0:.1f} s", flush=True)
+    del params, host, g_c, g_h, p_c, p_h
+    release()
+
+    # (b) the launcher's loop: loss descends over three cycled batches
+    fresh_peak()
+    res = train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                lr=TRAIN_LR, device=dev, cycle=3, verbose=False)
+    peak = torch.cuda.max_memory_allocated()
+    losses = res["losses"]
+    if not losses[-1] < 0.9 * losses[0]:
+        fail(f"train (b): loss {losses[0]:.4f} -> {losses[-1]:.4f}, not "
+             "below 0.9x")
+    step_s = median(res["step_s"][1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_flops(cfg, res["params"], TRAIN_BATCH, TRAIN_SEQ)
+    print(f"  [{card}] train (b) {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} (3 batches cycled, lr {TRAIN_LR}, remat off): "
+          f"loss {' '.join(f'{x:.4f}' for x in losses)}; step "
+          f"{step_s * 1e3:.1f} ms (median of steps 2-{TRAIN_STEPS}; first "
+          f"{res['step_s'][0] * 1e3:.1f} ms), {tokens / step_s:.0f} "
+          f"tokens/s, {flops / 1e12:.2f} TFLOP a step = "
+          f"{flops / step_s / 1e12:.2f} TFLOP/s, "
+          f"{100 * flops / step_s / FP32_FLOPS_PER_S:.1f} % of the fp32 "
+          f"peak; max_memory_allocated {peak / 2**30:.2f} GiB",
+          flush=True)
+    del res
+    release()
+
+    # (c) grad accumulation: microbatches 2 = 1 on one global batch
+    params = fresh()
+    b = on(TokenPipeline(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ,
+                         seed=1).batch_at(0), dev)
+    outs = {}
+    for mb in (1, 2):
+        step = make_train_step(cfg, remat=False, lr=TRAIN_LR,
+                               microbatches=mb)
+        p2, _, m = step(params, init_adamw(params), b)
+        outs[mb] = (float(m["loss"]), float(m["grad_norm"]), p2)
+        del p2, m
+        release()
+    (l1, n1, p1), (l2, n2, p2) = outs[1], outs[2]
+    if not abs(l1 - l2) <= TRAIN_LOSS_RTOL * abs(l1) \
+            or not abs(n1 - n2) <= TRAIN_LOSS_RTOL * abs(n1):
+        fail(f"train (c): microbatches 2 vs 1: loss {l2} vs {l1}, grad "
+             f"norm {n2} vs {n1}")
+    _, g1 = value_and_grad(make_loss_fn(cfg, remat=False))(
+        params, b["tokens"], b["labels"])
+    d, d_kept, noisy = 0.0, 0.0, 0
+    for (name, x), (_, y), (_, g) in zip(named_leaves(p1), named_leaves(p2),
+                                         named_leaves(g1)):
+        diff = (x - y).abs()
+        off = diff > ACCUM_PARAM_ATOL
+        d = max(d, float(diff.max()))
+        if not off.all():
+            d_kept = max(d_kept, float(diff[~off].max()))
+        if off.any():
+            g_off = float(g[off].abs().max())
+            g_max = float(g.abs().max())
+            if not (g_off <= ACCUM_NOISE_REL * g_max
+                    and float(diff.max()) <= 2 * TRAIN_LR):
+                fail(f"train (c): {name}: {int(off.sum())} entries beyond "
+                     f"{ACCUM_PARAM_ATOL} (max {float(diff.max()):.3e}) "
+                     f"with |g| up to {g_off:.3e} of max |g| {g_max:.3e}")
+            noisy += int(off.sum())
+    print(f"  [{card}] train (c) microbatches 2 vs 1 on {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}: loss {l2:.7f} vs {l1:.7f}, grad norm {n2:.7f} vs "
+          f"{n1:.7f} (rel {TRAIN_LOSS_RTOL}); params within {d_kept:.3e} "
+          f"(gate {ACCUM_PARAM_ATOL}) but {noisy} entries with gradients at "
+          f"fp32 noise (<= {ACCUM_NOISE_REL} of their leaf's max |g|), "
+          f"within {d:.3e} (gate 2 lr = {2 * TRAIN_LR})", flush=True)
+    del outs, p1, p2, g1
+    release()
+
+    # (d) remat: the same gradients, less activation memory
+    grads, peaks = {}, {}
+    for remat in (False, True):
+        fresh_peak()
+        base = torch.cuda.memory_allocated()
+        _, g = value_and_grad(make_loss_fn(cfg, remat=remat))(
+            params, b["tokens"], b["labels"])
+        torch.cuda.synchronize()
+        # above the weights, the batch and the other run's gradients
+        peaks[remat] = torch.cuda.max_memory_allocated() - base
+        grads[remat] = g
+        del g
+    bitwise, worst = True, 0.0
+    for (name, x), (_, y) in zip(named_leaves(grads[True]),
+                                 named_leaves(grads[False])):
+        bitwise = bitwise and torch.equal(x, y)
+        scale, err = float(y.abs().max()), float((x - y).abs().max())
+        if not err <= REMAT_GRAD_REL * scale:
+            fail(f"train (d): remat gradient of {name} off by {err:.3e} "
+                 f"(max |g| {scale:.3e})")
+        worst = max(worst, err / scale if scale > 0 else 0.0)
+    print(f"  [{card}] train (d) remat on vs off, {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}: gradients bitwise equal: {bitwise} (worst leaf "
+          f"{worst:.3e} of its max |g|, gate {REMAT_GRAD_REL}); "
+          f"max_memory_allocated above the weights and batch: remat off "
+          f"{peaks[False] / 2**30:.2f} GiB, on {peaks[True] / 2**30:.2f} "
+          f"GiB (saves {(peaks[False] - peaks[True]) / 2**30:.2f} GiB)",
+          flush=True)
+    del grads, params, b
+    release()
+
+    # (e) int8 error-feedback compression converges
+    res = train(cfg, steps=10, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                lr=TRAIN_LR, device=dev, cycle=2, compress_grads=True,
+                verbose=False)
+    losses = res["losses"]
+    if not losses[-1] < losses[0]:
+        fail(f"train (e): compressed loss {losses[0]:.4f} -> "
+             f"{losses[-1]:.4f}")
+    print(f"  [{card}] train (e) compress_grads, 10 steps (2 batches "
+          f"cycled): loss {' '.join(f'{x:.4f}' for x in losses)}",
+          flush=True)
+    del res
+    release()
+
+    # (f) crash and restart from an async checkpoint
+    k, n = RESTART_STEPS
+    step = make_train_step(cfg, remat=False, lr=TRAIN_LR)
+    pipe = TokenPipeline(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=2)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="train_ckpt_",
+                                     dir=ROOT / "build") as ckdir:
+        p = fresh()
+        o = init_adamw(p)
+        for i in range(k):
+            p, o, _ = step(p, o, on(pipe.batch_at(i), dev))
+        mgr = CheckpointManager(ckdir, keep=2)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        mgr.save_async(k, {"p": p, "o": o})
+        t_copy = time.monotonic() - t0
+        for i in range(k, n):                 # trains while it writes
+            p, o, _ = step(p, o, on(pipe.batch_at(i), dev))
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        mgr.wait()
+        t_wait = time.monotonic() - t0
+        p2 = fresh(1)                         # fresh tensors, other values
+        t0 = time.monotonic()
+        restored, at = mgr.restore({"p": p2, "o": init_adamw(p2)})
+        t_restore = time.monotonic() - t0
+        del p2
+        ck_bytes = sum(f.stat().st_size for f in Path(ckdir).rglob("*")
+                       if f.is_file())
+    if at != k:
+        fail(f"train (f): restored step {at}, saved {k}")
+    p3, o3 = restored["p"], restored["o"]
+    del restored
+    for i in range(at, n):
+        p3, o3, _ = step(p3, o3, on(pipe.batch_at(i), dev))
+    d = max(max_abs_diff(p, p3), max_abs_diff(o.mu, o3.mu),
+            max_abs_diff(o.nu, o3.nu), max_abs_diff(o.master, o3.master))
+    same = all(torch.equal(x, y) for (_, x), (_, y) in
+               zip(named_leaves(p), named_leaves(p3)))
+    if not d <= RESTART_ATOL or int(o3.step) != n:
+        fail(f"train (f): restarted run off by {d:.3e} (step {int(o3.step)})")
+    print(f"  [{card}] train (f) {k} steps, save_async, {n - k} more, "
+          f"restore into fresh tensors, the same {n - k} again: params and "
+          f"moments within {d:.3e} (atol {RESTART_ATOL}), params bitwise "
+          f"equal: {same}; checkpoint {ck_bytes / 2**30:.2f} GiB, "
+          f"save_async's host copy {t_copy:.2f} s, write left after "
+          f"{n - k} steps {t_wait:.2f} s, restore {t_restore:.2f} s",
+          flush=True)
+    del p, o, p3, o3
+    release()
+
+    train_families(card, dev)
+    counts = ops.launch_counts()
+    if any(counts.values()):
+        fail(f"train: a serving kernel launched on the training path: "
+             f"{counts}")
+    print(f"  [{card}] train: no CUDA kernel of the port launched "
+          f"({sum(counts.values())} launches); phase "
+          f"{time.monotonic() - t_phase:.1f} s", flush=True)
+
+
+def train_families(card: str, dev="cuda") -> None:
+    """The train phase's (g): the other families at full width, a few
+    steps on one batch, remat on."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.models.model import init_params
+    from repro_torch.training import (TokenPipeline, init_adamw,
+                                      make_train_step)
+    from repro_torch.training.train import make_loss_fn, value_and_grad
+
+    for arch, bsz, seq, n_layers, n_steps in TRAIN_FAMILIES:
+        fresh_peak()
+        t0 = time.monotonic()
+        fcfg = get(arch)
+        if n_layers is not None:
+            fcfg = dataclasses.replace(fcfg, n_layers=n_layers)
+        params = init_params(fcfg, torch.Generator(dev).manual_seed(0),
+                             device=dev)
+        n_p = sum(t.numel() for t in iter_leaves(params))
+        b = {k: torch.as_tensor(v).to(dev) for k, v in TokenPipeline(
+            fcfg.vocab, bsz, seq, seed=0, enc_frames=fcfg.enc_frames,
+            d_model=fcfg.d_model).batch_at(0).items()}
+        note = ""
+        if fcfg.family in ("ssm", "hybrid"):
+            _, g = value_and_grad(make_loss_fn(fcfg, remat=True))(
+                params, b["tokens"], b["labels"])
+            bad = sum(not bool(torch.isfinite(t).all())
+                      for t in iter_leaves(g))
+            note = (f"; SSD chunk {FAMILY_SSM_CHUNK} (at the config's "
+                    f"{fcfg.ssm_chunk}: {bad} of {len(list(iter_leaves(g)))} "
+                    "gradient leaves non-finite, the reference's "
+                    "_segsum_decay)")
+            del g
+            fcfg = dataclasses.replace(fcfg, ssm_chunk=FAMILY_SSM_CHUNK)
+        opt = init_adamw(params)
+        step = make_train_step(fcfg, remat=True, lr=FAMILY_LR)
+        losses, norms, times = [], [], []
+        for _ in range(n_steps):
+            t1 = time.perf_counter()
+            params, opt, m = step(params, opt, b)
+            losses.append(float(m["loss"]))
+            times.append(time.perf_counter() - t1)
+            norms.append(float(m["grad_norm"]))
+        # a finite global norm: every gradient entry finite
+        if not all(np.isfinite(losses + norms)):
+            fail(f"train (g) {arch}: loss {losses}, grad norm {norms}")
+        if not losses[-1] < losses[0]:
+            fail(f"train (g) {arch}: loss {losses}")
+        frames = (f" + {fcfg.enc_frames} frames" if fcfg.enc_frames
+                  else "")
+        print(f"  [{card}] train (g) {fcfg.name} ({fcfg.family}, "
+              f"{fcfg.n_layers} layers, {n_p} parameters), {bsz} x "
+              f"{seq}{frames}, remat: loss "
+              f"{' '.join(f'{x:.4f}' for x in losses)}, grad norm "
+              f"{' '.join(f'{x:.3f}' for x in norms)} (lr {FAMILY_LR}); "
+              f"step {times[-1] * 1e3:.1f} ms (last); max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"{time.monotonic() - t0:.1f} s{note}", flush=True)
+        del params, opt, b, m
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 COPY_KERNELS = ("quantize_kernel", "dequantize_kernel", "gather_kernel")
 SCHED_KEYS = ("iterations", "decode_launches", "packed_prefill_calls",
               "prefill_tokens", "evictions", "offload_blocks", "tdg_ratio")
@@ -2311,6 +2739,9 @@ def main() -> None:
     phase("frontend")
     counts_fe = frontend_phase(card, est, sim_row, params)
     del params
+
+    phase("train")
+    train_phase(card)
 
     if "--profile" in sys.argv[1:]:
         phase("profile")

@@ -7,12 +7,17 @@ twelve config files under ``repro_torch/configs`` are the same data.
 Parameters are a plain nested dict of tensors in the reference's layout:
 layer parameters STACKED on a leading axis, ``wq`` as (d, H*hd) and
 ``lm_head`` as (V, d).  Where JAX scans over the stacked layers, the port
-loops over them in Python (``layer_params`` indexes one layer as views).
+loops over them in Python (``unstack_layers`` splits the stack into
+per-layer views; ``layer_params`` indexes one layer).
 
 Public entry points:
   * ``init_params(cfg, generator, ...)``  random parameters from a seed
   * ``forward(cfg, params, tokens, ...)`` full-sequence logits (and, with
-    ``collect_cache``, a serving cache)
+    ``collect_cache``, a serving cache), under ``torch.no_grad``: serving
+    builds no autograd graph
+  * ``forward_train(cfg, params, tokens, ...)`` the same body without the
+    decorator, for the training loss; ``remat`` recomputes each layer in
+    the backward pass (the reference's per-layer ``jax.checkpoint``)
   * ``prefill(cfg, params, tokens, max_seq, ...)`` build a serving cache
   * ``decode_step(cfg, params, cache, tok)``  one token with cache
   * encoder-decoder variants take ``enc_inputs`` (stub frontend
@@ -25,6 +30,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import kvcache, moe
 from .layers import (apply_norm, apply_rope, chunked_attention,
@@ -247,6 +253,27 @@ def layer_params(tree: dict, li: int) -> dict:
             for k, v in tree.items()}
 
 
+def unstack_layers(tree: dict, n: int) -> list[dict]:
+    """Every layer of the stacked layer tree, as views: one ``unbind`` per
+    leaf, whose backward stacks the layers' gradients once (indexing each
+    layer apart would write a zero-filled (L, ...) gradient per layer)."""
+    out: list[dict] = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = unstack_layers(v, n) if isinstance(v, dict) \
+            else torch.unbind(v, 0)
+        for layer, part in zip(out, parts):
+            layer[k] = part
+    return out
+
+
+def _layer_call(fn, remat: bool):
+    """``fn`` itself, or under activation checkpointing: its activations
+    are dropped after the forward and recomputed in the backward."""
+    if not remat:
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
 # --------------------------------------------------------------------------
 # attention sub-block (full sequence)
 # --------------------------------------------------------------------------
@@ -307,35 +334,33 @@ def _hybrid_mix(lp: dict, a_out: torch.Tensor, s_out: torch.Tensor):
 
 
 # --------------------------------------------------------------------------
-# full-sequence forward (prefill)
+# full-sequence forward (training / prefill)
 # --------------------------------------------------------------------------
 
-@torch.no_grad()
-def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
-            attn_impl: str = "dense",
-            enc_inputs: Optional[torch.Tensor] = None,
-            collect_cache: bool = False, last_only: bool = False,
-            max_seq: int = 0):
-    """Token logits (B, S, V) for a full sequence (``last_only``: (B, 1, V)
-    for the final position only).  ``collect_cache`` returns (logits,
-    serving cache of ``max_seq`` positions) instead, as the reference's
-    ``forward`` does; without it only the logits come back (the serving
-    engine keeps its cache in the paged pool)."""
+def forward_train(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
+                  attn_impl: str = "dense", remat: bool = False,
+                  enc_inputs: Optional[torch.Tensor] = None,
+                  collect_cache: bool = False, last_only: bool = False,
+                  max_seq: int = 0):
+    """The body of ``forward``, without ``torch.no_grad``: autograd records
+    it when grad is enabled (the training loss calls it so).  ``remat``
+    runs each decoder layer, encoder layer and enc-dec decoder layer under
+    ``torch.utils.checkpoint`` (non-reentrant), as the reference wraps
+    each scanned layer in ``jax.checkpoint``."""
     b, s = tokens.shape
     x = params["embed"][tokens]
     positions = torch.arange(s, device=tokens.device)[None, :]
 
     if cfg.family == "encdec":
-        enc_out = _encoder(cfg, params, enc_inputs, attn_impl)
+        enc_out = _encoder(cfg, params, enc_inputs, attn_impl, remat)
         logits, cache = _decoder_encdec(cfg, params, x, positions, enc_out,
                                         attn_impl, collect_cache, max_seq,
-                                        last_only)
+                                        last_only, remat)
         return (logits, cache) if collect_cache else logits
 
     spec = cfg.ssm_spec if cfg.family in ("ssm", "hybrid") else None
-    extras: dict[str, list] = {"k": [], "v": [], "ssm": [], "conv": []}
-    for li in range(cfg.n_layers):
-        lp = layer_params(params["layers"], li)
+
+    def layer(x, lp):
         h = apply_norm(x, lp["ln1"], cfg.norm)
         st = k = v = None
         if cfg.family == "ssm":
@@ -352,6 +377,12 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
         if cfg.family != "ssm":
             h2 = apply_norm(x, lp["ln2"], cfg.norm)
             x = x + _ffn(cfg, lp, h2)
+        return x, k, v, st
+
+    call = _layer_call(layer, remat)
+    extras: dict[str, list] = {"k": [], "v": [], "ssm": [], "conv": []}
+    for lp in unstack_layers(params["layers"], cfg.n_layers):
+        x, k, v, st = call(x, lp)
         if collect_cache:
             if k is not None:
                 extras["k"].append(k)
@@ -368,6 +399,24 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     stacked = {key: torch.stack(vals) for key, vals in extras.items()
                if vals}
     return logits, _build_cache(cfg, stacked, b, s, max_seq or s)
+
+
+@torch.no_grad()
+def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
+            attn_impl: str = "dense",
+            enc_inputs: Optional[torch.Tensor] = None,
+            collect_cache: bool = False, last_only: bool = False,
+            max_seq: int = 0):
+    """Token logits (B, S, V) for a full sequence (``last_only``: (B, 1, V)
+    for the final position only).  ``collect_cache`` returns (logits,
+    serving cache of ``max_seq`` positions) instead, as the reference's
+    ``forward`` does; without it only the logits come back (the serving
+    engine keeps its cache in the paged pool).  Runs under
+    ``torch.no_grad``, so serving records no graph even when the
+    parameters require grad."""
+    return forward_train(cfg, params, tokens, attn_impl=attn_impl,
+                         enc_inputs=enc_inputs, collect_cache=collect_cache,
+                         last_only=last_only, max_seq=max_seq)
 
 
 def _build_cache(cfg: ArchConfig, extras: dict, b: int, s: int,
@@ -402,7 +451,7 @@ def _build_cache(cfg: ArchConfig, extras: dict, b: int, s: int,
 # --------------------------------------------------------------------------
 
 def _encoder(cfg: ArchConfig, params: dict, enc_inputs: torch.Tensor,
-             attn_impl: str) -> torch.Tensor:
+             attn_impl: str, remat: bool = False) -> torch.Tensor:
     if enc_inputs is None:
         raise ValueError(f"{cfg.name!r} is an encoder-decoder: pass "
                          "enc_inputs (B, frames, d_model)")
@@ -411,14 +460,18 @@ def _encoder(cfg: ArchConfig, params: dict, enc_inputs: torch.Tensor,
         n_frames, cfg.d_model, enc_inputs.dtype, enc_inputs.device)[None]
     positions = torch.arange(n_frames, device=x.device)[None, :]
     enc_cfg = dataclasses.replace(cfg, family="dense", rope_fraction=0.0)
-    for li in range(cfg.n_enc_layers):
-        lp = layer_params(params["enc_layers"], li)
+
+    def layer(x, lp):
         h = apply_norm(x, lp["ln1"], cfg.norm)
         mix, _, _ = _attn_block(enc_cfg, lp["attn"], h, positions,
                                 causal=False, attn_impl=attn_impl)
         x = x + mix
         h2 = apply_norm(x, lp["ln2"], cfg.norm)
-        x = x + _mlp(cfg, lp, h2)
+        return x + _mlp(cfg, lp, h2)
+
+    call = _layer_call(layer, remat)
+    for lp in unstack_layers(params["enc_layers"], cfg.n_enc_layers):
+        x = call(x, lp)
     return apply_norm(x, params["enc_ln_f"], cfg.norm)
 
 
@@ -436,14 +489,12 @@ def _cross_kv(cfg: ArchConfig, xp: dict, enc_out: torch.Tensor):
 def _decoder_encdec(cfg: ArchConfig, params: dict, x: torch.Tensor,
                     positions: torch.Tensor, enc_out: torch.Tensor,
                     attn_impl: str, collect_cache: bool, max_seq: int,
-                    last_only: bool = False):
+                    last_only: bool = False, remat: bool = False):
     b, s = x.shape[:2]
     x = x + sinusoidal_positions(s, cfg.d_model, x.dtype, x.device)[None]
     dec_cfg = dataclasses.replace(cfg, rope_fraction=0.0)
-    extras: dict[str, list] = {"k": [], "v": [], "cross_k": [],
-                               "cross_v": []}
-    for li in range(cfg.n_layers):
-        lp = layer_params(params["layers"], li)
+
+    def layer(x, lp, enc_out):
         h = apply_norm(x, lp["ln1"], cfg.norm)
         mix, k, v = _attn_block(dec_cfg, lp["attn"], h, positions,
                                 causal=True, attn_impl=attn_impl)
@@ -456,7 +507,13 @@ def _decoder_encdec(cfg: ArchConfig, params: dict, x: torch.Tensor,
         xo = _attend(qx, kx_e, vx_e, causal=False, attn_impl=attn_impl)
         x = x + xo.reshape(b, s, -1) @ lp["xattn"]["wo"]
         h2 = apply_norm(x, lp["ln2"], cfg.norm)
-        x = x + _mlp(cfg, lp, h2)
+        return x + _mlp(cfg, lp, h2), k, v, kx_e, vx_e
+
+    call = _layer_call(layer, remat)
+    extras: dict[str, list] = {"k": [], "v": [], "cross_k": [],
+                               "cross_v": []}
+    for lp in unstack_layers(params["layers"], cfg.n_layers):
+        x, k, v, kx_e, vx_e = call(x, lp, enc_out)
         if collect_cache:
             for key, val in (("k", k), ("v", v), ("cross_k", kx_e),
                              ("cross_v", vx_e)):
@@ -579,5 +636,6 @@ def greedy_generate(cfg: ArchConfig, params: dict, prompt,
 
 
 __all__ = ["ArchConfig", "SSMSpec", "spec_for", "init_params",
-           "forward", "prefill", "decode_step", "greedy_generate",
-           "layer_params", "resolve_device"]
+           "forward", "forward_train", "prefill", "decode_step",
+           "greedy_generate", "layer_params", "unstack_layers",
+           "resolve_device"]

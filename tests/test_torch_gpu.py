@@ -1089,3 +1089,122 @@ def test_families_prefill_decode_on_card_match_forward(cuda, arch):
         want = full[:, s - 1 + i]
         torch.testing.assert_close(got, want, atol=1e-3, rtol=0)
         assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+# --------------------------------------------------------------------------
+# training (slice 10): the step on the card at SMOKE width, fp32
+# --------------------------------------------------------------------------
+
+TRAIN_ARCHS = ["qwen1_5_0_5b", "olmoe_1b_7b", "mamba2_1_3b", "hymba_1_5b",
+               "whisper_small"]
+
+
+def train_setup(cuda, arch="qwen1_5_0_5b", batch=4, seq=32, seed=0):
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.model import init_params
+    from repro_torch.training import TokenPipeline
+
+    cfg = get_smoke(arch)
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(seed),
+                         device=cuda)
+    b = TokenPipeline(cfg.vocab, batch, seq, seed=seed,
+                      enc_frames=cfg.enc_frames,
+                      d_model=cfg.d_model).batch_at(0)
+    return cfg, params, b
+
+
+def on_device(b: dict, dev) -> dict:
+    return {k: torch.as_tensor(v).to(dev) for k, v in b.items()}
+
+
+def grad_leaves(tree: dict) -> list:
+    from repro_torch.training.tree import leaves
+    return leaves(tree)
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_grads_on_card_match_cpu(cuda, arch):
+    """(a) loss and every gradient leaf of one step on the card against
+    the same step on the CPU from the same weights: loss rel 1e-5, each
+    leaf within 1e-4 of its max |g|."""
+    from repro_torch.models.convert import params_from_numpy, \
+        params_to_numpy
+    from repro_torch.training.train import make_loss_fn, value_and_grad
+
+    cfg, params, b = train_setup(cuda, arch)
+    host = params_from_numpy(params_to_numpy(params), device="cpu")
+    grad_fn = value_and_grad(make_loss_fn(cfg, remat=False))
+    bc, bh = on_device(b, cuda), on_device(b, "cpu")
+    enc = [bc["enc_inputs"]] if "enc_inputs" in bc else []
+    loss_c, g_c = grad_fn(params, bc["tokens"], bc["labels"], *enc)
+    enc = [bh["enc_inputs"]] if "enc_inputs" in bh else []
+    loss_h, g_h = grad_fn(host, bh["tokens"], bh["labels"], *enc)
+    assert float(loss_c) == pytest.approx(float(loss_h), rel=1e-5)
+    for x, y in zip(grad_leaves(g_c), grad_leaves(g_h)):
+        x = x.cpu()
+        assert torch.isfinite(x).all()
+        assert float((x - y).abs().max()) <= 1e-4 * float(y.abs().max())
+
+
+def test_train_grad_accum_on_card(cuda):
+    """(c) microbatches 2 = 1 on one global batch: loss rel 1e-5, params
+    within 1e-4 (the reference's tolerances)."""
+    from repro_torch.training import init_adamw, make_train_step
+
+    cfg, params, b = train_setup(cuda, batch=4, seq=16, seed=1)
+    bc = on_device(b, cuda)
+    outs = {}
+    for mb in (1, 2):
+        step = make_train_step(cfg, remat=False, lr=1e-3, microbatches=mb)
+        p2, _, m = step(params, init_adamw(params), bc)
+        outs[mb] = (float(m["loss"]), p2)
+    assert outs[1][0] == pytest.approx(outs[2][0], rel=1e-5)
+    assert max(float((x - y).abs().max()) for x, y in zip(
+        grad_leaves(outs[1][1]), grad_leaves(outs[2][1]))) < 1e-4
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_remat_on_card_matches_no_remat(cuda, arch):
+    """(d) remat=True gradients within 1e-6 of each leaf's max |g| of the
+    remat=False ones on the card."""
+    from repro_torch.training.train import make_loss_fn, value_and_grad
+
+    cfg, params, b = train_setup(cuda, arch)
+    bc = on_device(b, cuda)
+    enc = [bc["enc_inputs"]] if "enc_inputs" in bc else []
+    grads = [value_and_grad(make_loss_fn(cfg, remat=remat))(
+        params, bc["tokens"], bc["labels"], *enc)[1]
+        for remat in (False, True)]
+    for x, y in zip(grad_leaves(grads[1]), grad_leaves(grads[0])):
+        assert float((x - y).abs().max()) <= 1e-6 * float(y.abs().max())
+
+
+def test_train_restart_on_card(cuda, tmp_path):
+    """(f) 2 steps, save_async, restore into fresh tensors, 2 more: the
+    uninterrupted run's params at the reference's atol 1e-6."""
+    from repro_torch.models.model import init_params
+    from repro_torch.training import (CheckpointManager, TokenPipeline,
+                                      init_adamw, make_train_step)
+
+    cfg, params, _ = train_setup(cuda, seed=5)
+    step = make_train_step(cfg, remat=False, lr=1e-3)
+    pipe = TokenPipeline(cfg.vocab, 2, 16, seed=9)
+    p, o = params, init_adamw(params)
+    for i in range(4):
+        p, o, _ = step(p, o, on_device(pipe.batch_at(i), cuda))
+    p2, o2 = params, init_adamw(params)
+    for i in range(2):
+        p2, o2, _ = step(p2, o2, on_device(pipe.batch_at(i), cuda))
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save_async(2, {"p": p2, "o": o2})
+    mgr.wait()
+    fresh = init_params(cfg, torch.Generator(cuda).manual_seed(6),
+                        device=cuda)
+    restored, at = mgr.restore({"p": fresh, "o": init_adamw(fresh)})
+    assert at == 2
+    assert all(t.device.type == cuda.type for t in grad_leaves(restored))
+    p3, o3 = restored["p"], restored["o"]
+    for i in range(2, 4):
+        p3, o3, _ = step(p3, o3, on_device(pipe.batch_at(i), cuda))
+    for x, y in zip(grad_leaves(p), grad_leaves(p3)):
+        torch.testing.assert_close(x, y, atol=1e-6, rtol=0)

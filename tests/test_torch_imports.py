@@ -27,6 +27,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "import repro_torch.examples.quickstart\n"
         "import repro_torch.examples.serve_cluster\n"
         "import repro_torch.examples.shared_prefix\n"
+        "import repro_torch.training, repro_torch.launch.train\n"
+        "import repro_torch.examples.train_resume\n"
         "import runpy\n"
         "runpy.run_path('tools/torch_perf_smoke.py', run_name='probe')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
@@ -104,3 +106,19 @@ def test_service_tier_entry_points_raise_without_a_card(monkeypatch):
         serve_cluster.main(["--smoke"])
     with pytest.raises(RuntimeError, match="cuda"):
         shared_prefix.main(["--smoke"])
+
+
+def test_training_entry_points_raise_without_a_card(monkeypatch):
+    """The training launcher and the resume example run on the card
+    unless they are asked for the CPU."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.examples import train_resume
+    from repro_torch.launch import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.train(get_smoke("qwen1_5_0_5b"), steps=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_resume.main(["--steps", "2"])

@@ -45,6 +45,11 @@ def test_replay_cli_frontend_mode_on_cpu(capsys):
 
 
 def test_torch_perf_smoke_gates_pass_on_cpu(tmp_path):
+    """The tool's gates at the reference's thresholds on the CPU.  Each
+    speed gate reads the median of the ratios of adjacent pairs of timed
+    passes (the pair's order alternating), so the load of whatever else
+    runs on the machine reaches both sides of every ratio; on the CPU the
+    fused and logits paths do the same work, a ratio of ~1.0."""
     tool = runpy.run_path(str(ROOT / "tools" / "torch_perf_smoke.py"),
                           run_name="torch_perf_smoke")
     out = tmp_path / "perf.json"
@@ -57,6 +62,7 @@ def test_torch_perf_smoke_gates_pass_on_cpu(tmp_path):
     assert (payload["gates"]["min_prefill_speedup"],
             payload["gates"]["max_tpot_ratio"],
             payload["gates"]["max_fused_ratio"]) == (1.1, 1.3, 1.2)
+    assert len(payload["decode_fusion"]["pair_ratios"]) == tool["REPEATS"]
     assert payload["streams_identical"]
     assert payload["disagg"]["parity"] and payload["spec"]["parity"]
     for section in ("prefill", "decode"):

@@ -21,13 +21,16 @@ contrasting configurations and asserts that
     the live speculation counters verbatim (sim<->live parity).
 
 Each configuration gets one warm-up pass (kernel build, first launches),
-then ``REPEATS`` timed passes interleaved with the other configuration's;
-its pass of median wall is reported.
-The speed ratios are gated as in the reference: the packed + overlapped
-prefill must reach ``--min-speedup`` (1.1x) of the per-request baseline's
-throughput, the overlapped decode TPOT may not exceed the baseline's by
-more than ``--max-tpot-ratio`` (1.3x), and the fused decode TPOT may not
-exceed the logits path's by more than ``--max-fused-ratio`` (1.2x).
+then ``REPEATS`` timed passes, each in an adjacent pair with a pass of
+the configuration it is compared with (the order alternating from pair
+to pair), so that both passes of a pair meet the same host load; its
+pass of median wall is reported.
+The speed ratios are gated as in the reference, each on the median of
+its per-pair ratios: the packed + overlapped prefill must reach
+``--min-speedup`` (1.1x) of the per-request baseline's throughput, the
+overlapped decode TPOT may not exceed the baseline's by more than
+``--max-tpot-ratio`` (1.3x), and the fused decode TPOT may not exceed
+the logits path's by more than ``--max-fused-ratio`` (1.2x).
 The JSON payload is written to ``--out``
 (default ``build/torch_perf_smoke.json``, git-ignored); no
 ``BENCH_*.json`` is written.
@@ -127,21 +130,30 @@ def run_once(cfg, params, trace, *, packed: bool, overlap: bool,
 
 
 def time_configs(cfg, params, make, configs):
-    """Run each engine configuration (``run_once`` flags) once to warm up,
-    then ``REPEATS`` times, interleaved so that host drift reaches every
-    configuration alike.  Returns each configuration's run of median wall
-    and whether every timed run streamed the same tokens."""
+    """Run each of two engine configurations (``run_once`` flags) once to
+    warm up, then ``REPEATS`` times in adjacent pairs, the pair's order
+    alternating, so that host drift reaches both alike.  Returns each
+    configuration's run of median wall, every pair's two rows, and
+    whether every timed run streamed the same tokens."""
     for kw in configs:
         run_once(cfg, params, make(), **kw)
     runs = [[] for _ in configs]
-    for _ in range(REPEATS):
-        for kw, mine in zip(configs, runs):
-            mine.append(run_once(cfg, params, make(), **kw))
+    for r in range(REPEATS):
+        order = (0, 1) if r % 2 == 0 else (1, 0)
+        for j in order:
+            runs[j].append(run_once(cfg, params, make(), **configs[j]))
     first = runs[0][0][1]
     same = all(outs == first for mine in runs for _, outs in mine)
     rows = [sorted(mine, key=lambda run: run[0]["wall_s"])[REPEATS // 2][0]
             for mine in runs]
-    return rows, same
+    pairs = [(a[0], b[0]) for a, b in zip(*runs)]
+    return rows, pairs, same
+
+
+def pair_ratios(pairs, key: str) -> list[float]:
+    """Each timed pair's second run's ``key`` over its first's: each ratio
+    compares two passes under one host load.  The gates read the median."""
+    return [b[key] / max(a[key], 1e-9) for a, b in pairs]
 
 
 def measure_overlap(cfg, params, args, out_len):
@@ -432,22 +444,23 @@ def collect(args) -> tuple[dict, list[str]]:
                          device=dev)
 
     # prefill-heavy trace: one output token, so wall time IS prefill time
-    (base_p, fast_p), same_p = measure_overlap(cfg, params, args, 1)
+    (base_p, fast_p), pairs_p, same_p = measure_overlap(cfg, params, args,
+                                                        1)
     # decode trace: several output tokens; the overlap engine leaves the
     # decode path alone, so its TPOT must not regress
-    (base_d, fast_d), same_d = measure_overlap(cfg, params, args,
-                                               args.decode_len)
-    (logits_row, fused_row), same_f = measure_fused(cfg, params, args)
+    (base_d, fast_d), pairs_d, same_d = measure_overlap(cfg, params, args,
+                                                        args.decode_len)
+    (logits_row, fused_row), pairs_f, same_f = measure_fused(cfg, params,
+                                                             args)
     tier_rows, tier_failures = measure_tier(cfg, params, args)
     disagg_row, disagg_failures = measure_disagg(cfg, params, args)
     spec_row, spec_failures = measure_spec(cfg, params, args)
 
-    speedup = fast_p["prefill_tok_per_s"] / max(base_p["prefill_tok_per_s"],
-                                                1e-9)
-    tpot_ratio = fast_d["tpot_proxy_ms"] / max(base_d["tpot_proxy_ms"],
-                                               1e-9)
-    fused_ratio = fused_row["tpot_proxy_ms"] / max(
-        logits_row["tpot_proxy_ms"], 1e-9)
+    ratios_p = pair_ratios(pairs_p, "prefill_tok_per_s")
+    ratios_d = pair_ratios(pairs_d, "tpot_proxy_ms")
+    ratios_f = pair_ratios(pairs_f, "tpot_proxy_ms")
+    speedup, tpot_ratio, fused_ratio = (
+        float(np.median(r)) for r in (ratios_p, ratios_d, ratios_f))
 
     failures = (list(tier_failures) + list(disagg_failures)
                 + list(spec_failures))
@@ -481,11 +494,14 @@ def collect(args) -> tuple[dict, list[str]]:
                    else "cpu"),
         "generated_by": "tools/torch_perf_smoke.py",
         "prefill": {"baseline": base_p, "overlapped": fast_p,
-                    "speedup": round(speedup, 2)},
+                    "speedup": round(speedup, 2),
+                    "pair_speedups": [round(r, 3) for r in ratios_p]},
         "decode": {"baseline": base_d, "overlapped": fast_d,
-                   "tpot_ratio": round(tpot_ratio, 2)},
+                   "tpot_ratio": round(tpot_ratio, 2),
+                   "pair_ratios": [round(r, 3) for r in ratios_d]},
         "decode_fusion": {"logits": logits_row, "fused": fused_row,
                           "fused_tpot_ratio": round(fused_ratio, 2),
+                          "pair_ratios": [round(r, 3) for r in ratios_f],
                           "streams_identical": same_f},
         "kv_tier": tier_rows,
         "disagg": disagg_row,
