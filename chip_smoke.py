@@ -176,8 +176,11 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                against the same step on this machine's CPU from the same
                weights (2 x 256 tokens, cut from 8 x 512 by the CPU's
                time): loss rel 1e-5, each leaf within 1e-4 of its max
-               |g|.  (b) ``launch/train.py``'s ``train``: 12 steps of 8 x
-               512 cycling 3 batches at lr 1e-3, the last loss below 0.9x
+               |g|; before that gate, the CPU, its threads and BLAS, and
+               each side's gradients against a float64 CPU run and
+               against a second run of its own are printed.  (b)
+               ``launch/train.py``'s ``train``: 12 steps of 8 x 512
+               cycling 3 batches at lr 1e-3, the last loss below 0.9x
                the first; step time (median after the first), tokens/s,
                FLOP share of the fp32 peak and peak memory printed.  (c)
                microbatches 2 = 1 on one 8 x 512 batch: loss and grad
@@ -197,6 +200,21 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                count is printed) and Whisper-small (8 x 448 over 1500
                frames), full width, remat on, lr 1e-5, 3 steps on one
                batch: loss and gradient norm finite, the loss falls.
+ 15. mesh    — ``launch/steps.py``'s sharded steps on a one-rank NCCL
+               world and a (1, 1) ``("data", "model")`` ``DeviceMesh``
+               (DTensor parameters, caches and batches placed by the
+               sharding rules; on one rank every placement is
+               ``Replicate()``), Qwen1.5-0.5B at full published width and
+               depth, fp32, weights from seed 0, each against the
+               unsharded port function on the card: ``build_prefill_step``
+               at 4 x 2048 (logits and cache within 2e-5);
+               ``build_serve_step`` with 8 rows of 1024-token prompts in a
+               2048-position cache, 16 greedy tokens (tokens equal,
+               logits and cache within 2e-5); ``build_train_step`` at 8 x
+               512 (loss rel 1e-5, each gradient leaf within 1e-4 of its
+               max |g|).  Whether each is bitwise, times and peak memory
+               printed; no kernel of the port launched; the process group
+               destroyed at the end.
 
 fp32 matmuls run in full fp32: TF32 is switched off for cuBLAS and cuDNN.
 The last two lines are the ``{"kernels": ...}`` JSON and the
@@ -2151,6 +2169,67 @@ def train_flops(cfg, params: dict, batch: int, seq: int) -> float:
     return 6.0 * n * batch * seq + 3.0 * attn
 
 
+def grad_diagnosis(card: str, grad_fn, params: dict, host: dict,
+                   batch_dev: dict, batch_cpu: dict, g_c: dict,
+                   g_h: dict) -> None:
+    """Train (a)'s diagnosis (ROADMAP Queue 3 item 9), printed before its
+    gate and not gated: this machine's CPU, threads, BLAS and fp32
+    matmul settings; each side's gradients against a float64 run of the
+    same step on the CPU (the model's own fp32 casts, in the norms, the
+    attention scores and the loss, stay fp32 there), per leaf, `embed`
+    named; and whether each side repeats its own gradients."""
+    from repro_torch.models.convert import params_from_numpy, params_to_numpy
+
+    cpu = "unknown CPU"
+    flags = ""
+    info = Path("/proc/cpuinfo")
+    if info.exists():
+        text = info.read_text()
+        found = re.search(r"model name\s*:\s*(.+)", text)
+        cpu = found.group(1).strip() if found else cpu
+        found = re.search(r"flags\s*:\s*(.+)", text)
+        have = set(found.group(1).split()) if found else set()
+        flags = " ".join(f for f in ("avx512f", "avx512_bf16", "amx_bf16",
+                                     "amx_tile") if f in have)
+    blas = re.findall(r"(?:BLAS|LAPACK)_INFO=\w+", torch.__config__.show())
+    mkldnn = getattr(getattr(torch.backends.mkldnn, "matmul", None),
+                     "fp32_precision", "n/a")
+    print(f"  [{card}] train (a) CPU: {cpu} ({flags or 'no avx512/amx'}); "
+          f"{torch.get_num_threads()} threads; {' '.join(blas)}; "
+          f"float32_matmul_precision "
+          f"{torch.get_float32_matmul_precision()}, mkldnn matmul "
+          f"{mkldnn}, cuda allow_tf32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}; "
+          f"{' '.join(torch.__config__.parallel_info().split())}",
+          flush=True)
+    host64 = params_from_numpy(params_to_numpy(params), device="cpu",
+                               dtype=torch.float64)
+    t0 = time.monotonic()
+    _, g_64 = grad_fn(host64, *batch_cpu.values())
+    t_64 = time.monotonic() - t0
+    _, g_c2 = grad_fn(params, *batch_dev.values())
+    _, g_h2 = grad_fn(host, *batch_cpu.values())
+    rows = {}
+    for side, g, again in (("card", g_c, g_c2), ("CPU", g_h, g_h2)):
+        worst, worst_name, embed, rep = 0.0, "", 0.0, 0.0
+        for (name, x), (_, y), (_, z) in zip(named_leaves(g),
+                                             named_leaves(g_64),
+                                             named_leaves(again)):
+            x = x.cpu()
+            rel = float((x.double() - y).abs().max()) / max(
+                float(y.abs().max()), 1e-30)
+            rep = max(rep, float((z.cpu() - x).abs().max()))
+            if name == "embed":
+                embed = rel
+            if rel > worst:
+                worst, worst_name = rel, name
+        rows[side] = (f"{side}: embed {embed:.3e}, worst leaf "
+                      f"{worst_name} {worst:.3e} of its max |g|, a second "
+                      f"run within {rep:.3e}")
+    print(f"  [{card}] train (a) gradients against float64 on the CPU "
+          f"({t_64:.1f} s): {rows['card']}; {rows['CPU']}", flush=True)
+
+
 def train_phase(card: str, dev="cuda") -> None:
     """The training path (``repro_torch.training`` through
     ``models.model.forward_train``, ``launch/train.py``'s loop) at
@@ -2198,6 +2277,8 @@ def train_phase(card: str, dev="cuda") -> None:
     t1 = time.monotonic()
     loss_h, g_h = grad_fn(host, *on(b, "cpu").values())
     t_cpu = time.monotonic() - t1
+    grad_diagnosis(card, grad_fn, params, host, on(b, dev), on(b, "cpu"),
+                   g_c, g_h)
     loss_c, loss_h = float(loss_c), float(loss_h)
     if not abs(loss_c - loss_h) <= TRAIN_LOSS_RTOL * abs(loss_h):
         fail(f"train (a): loss {loss_c} on the card, {loss_h} on the CPU")
@@ -2468,6 +2549,222 @@ def train_families(card: str, dev="cuda") -> None:
         del params, opt, b, m
         gc.collect()
         torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------
+# mesh: the sharded steps of launch/steps.py on a one-rank mesh
+# --------------------------------------------------------------------------
+
+MESH_ARCH = "qwen1_5_0_5b"
+# reduced SHAPES that one card holds beside the unsharded run: prefill
+# 4 x 2048 (prefill_32k: 32 x 32768); decode 8 rows against a
+# 2048-position cache holding a 1024-token prompt, 16 greedy tokens
+# (decode_32k: 128 x 32768); train 8 x 512, the train phase's batch
+# (train_4k: 256 x 4096)
+MESH_PREFILL = ("prefill_2k", "prefill", 2048, 4)
+MESH_DECODE = ("decode_2k", "decode", 2048, 8)
+MESH_PROMPT, MESH_GREEDY = 1024, 16
+MESH_TRAIN = ("train_512", "train", TRAIN_SEQ, TRAIN_BATCH)
+
+
+def full_tensor(x) -> torch.Tensor:
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def same(got, want) -> tuple[float, bool]:
+    """(max |got - want|, bitwise equal) of a DTensor and a tensor."""
+    got = full_tensor(got)
+    return float((got - want).abs().max()), bool(torch.equal(got, want))
+
+
+def mesh_phase(card: str, dev="cuda") -> None:
+    """``launch/steps.py``'s sharded prefill, serve and train steps on a
+    one-rank world (NCCL on the card) and a (1, 1) ``("data", "model")``
+    ``DeviceMesh``, at Qwen1.5-0.5B's full published width and depth,
+    fp32, parameters from ``init_params`` (seed 0), each against the
+    unsharded port function on the same card.  No kernel of the port lies
+    on this path (the reference's steps run chunked / decode attention
+    and the loss in plain JAX)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get
+    from repro_torch.distributed import ShardingPolicy
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.model import decode_step, init_params, prefill
+    from repro_torch.training import (TokenPipeline, init_adamw,
+                                      make_train_step)
+
+    t_phase = time.monotonic()
+    ops.reset_launch_counts()
+    cfg = get(MESH_ARCH)
+    dist.init_process_group("nccl" if dev == "cuda" else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_debug_mesh((1, 1), ("data", "model"),
+                               device_type=torch.device(dev).type)
+        serve_pol = ShardingPolicy(mesh, mode="serve")
+        params = init_params(cfg, torch.Generator(dev).manual_seed(0),
+                             device=dev)
+        rng = torch.Generator(dev).manual_seed(11)
+
+        def timed(fn, *args):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            return out, time.monotonic() - t0
+
+        # prefill: last-position logits and the cache
+        fresh_peak()
+        shape = steps.ShapeSpec(*MESH_PREFILL)
+        step, _, _ = steps.build_prefill_step(cfg, serve_pol, shape,
+                                              device=dev)
+        toks = torch.randint(0, cfg.vocab, (shape.batch, shape.seq),
+                             generator=rng, device=dev)
+        p_sh = steps.place(params, step.in_shardings[0])
+        (logits_s, cache_s), t_first = timed(step, p_sh, toks)
+        (logits_s, cache_s), t_s = timed(step, p_sh, toks)
+        (logits_1, cache_1), t_1 = timed(
+            lambda: prefill(cfg, params, toks, max_seq=shape.seq,
+                            attn_impl="chunked"))
+        peak = torch.cuda.max_memory_allocated()
+        err, bit = same(logits_s, logits_1)
+        c_err, c_bit = 0.0, True
+        for k in cache_1:
+            e, b = same(cache_s[k], cache_1[k])
+            c_err, c_bit = max(c_err, e), c_bit and b
+        if not (err <= TOL["atol"] and c_err <= TOL["atol"]):
+            fail(f"mesh prefill: logits off by {err:.3e}, cache by "
+                 f"{c_err:.3e}")
+        print(f"  [{card}] mesh prefill {cfg.name} {shape.batch} x "
+              f"{shape.seq}: logits within {err:.3e} (bitwise {bit}), "
+              f"cache within {c_err:.3e} (bitwise {c_bit}), atol "
+              f"{TOL['atol']}; sharded step {t_s * 1e3:.1f} ms (first call "
+              f"{t_first * 1e3:.1f} ms), unsharded {t_1 * 1e3:.1f} ms; "
+              f"max_memory_allocated {peak / 2**30:.2f} GiB", flush=True)
+        del logits_s, cache_s, logits_1, cache_1, p_sh, step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # serve: greedy decode from a prefilled cache, each side choosing
+        # its own tokens
+        fresh_peak()
+        shape = steps.ShapeSpec(*MESH_DECODE)
+        step, _, _ = steps.build_serve_step(cfg, serve_pol, shape,
+                                            device=dev)
+        prompt = torch.randint(0, cfg.vocab, (shape.batch, MESH_PROMPT),
+                               generator=rng, device=dev)
+        logits_1, cache_1 = prefill(cfg, params, prompt, max_seq=shape.seq,
+                                    attn_impl="chunked")
+        cache_s = steps.place({k: v.clone() for k, v in cache_1.items()},
+                              step.in_shardings[1])
+        p_sh = steps.place(params, step.in_shardings[0])
+        tok_s = tok_1 = logits_1.argmax(-1)
+        errs, bits, toks_s, toks_1, t_s, t_1 = [], [], [], [], [], []
+        for _ in range(MESH_GREEDY):
+            (logits_s, cache_s), dt = timed(step, p_sh, cache_s, tok_s)
+            t_s.append(dt)
+            (logits_1, cache_1), dt = timed(decode_step, cfg, params,
+                                            cache_1, tok_1)
+            t_1.append(dt)
+            e, b = same(logits_s, logits_1)
+            errs.append(e)
+            bits.append(b)
+            tok_s = full_tensor(logits_s).argmax(-1)
+            tok_1 = logits_1.argmax(-1)
+            toks_s.append(tok_s)
+            toks_1.append(tok_1)
+        peak = torch.cuda.max_memory_allocated()
+        toks_s, toks_1 = torch.stack(toks_s, 1), torch.stack(toks_1, 1)
+        c_err, c_bit = 0.0, True
+        for k in cache_1:
+            e, b = same(cache_s[k], cache_1[k])
+            c_err, c_bit = max(c_err, e), c_bit and b
+        if not torch.equal(toks_s, toks_1):
+            fail(f"mesh serve: greedy tokens differ: {toks_s.tolist()} vs "
+                 f"{toks_1.tolist()}")
+        if not (max(errs) <= TOL["atol"] and c_err <= TOL["atol"]):
+            fail(f"mesh serve: logits off by {max(errs):.3e}, cache by "
+                 f"{c_err:.3e}")
+        print(f"  [{card}] mesh serve {cfg.name} {shape.batch} rows, "
+              f"{MESH_PROMPT}-token prompts in a {shape.seq}-position "
+              f"cache, {MESH_GREEDY} greedy tokens: tokens equal; logits "
+              f"within {max(errs):.3e} (bitwise in {sum(bits)} of "
+              f"{len(bits)} steps), cache within {c_err:.3e} (bitwise "
+              f"{c_bit}), atol {TOL['atol']}; sharded step "
+              f"{np.median(t_s[1:]) * 1e3:.1f} ms (median; first "
+              f"{t_s[0] * 1e3:.1f} ms), unsharded "
+              f"{np.median(t_1[1:]) * 1e3:.1f} ms; max_memory_allocated "
+              f"{peak / 2**30:.2f} GiB", flush=True)
+        del logits_s, cache_s, logits_1, cache_1, p_sh, step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # train: one step; AdamW's first moment after one step from zero
+        # is (1 - b1) x the clipped gradient, so each leaf of mu within
+        # 1e-4 of its largest entry is the train phase's gradient gate
+        fresh_peak()
+        train_pol = ShardingPolicy(mesh, mode="train")
+        shape = steps.ShapeSpec(*MESH_TRAIN)
+        step, _, meta = steps.build_train_step(cfg, train_pol,
+                                               microbatches=1, device=dev)
+        b = {k: torch.as_tensor(v).to(dev) for k, v in TokenPipeline(
+            cfg.vocab, shape.batch, shape.seq, seed=3).batch_at(0).items()}
+        one = make_train_step(cfg, attn_impl="chunked", remat=True,
+                              microbatches=meta["microbatches"])
+        (p_1, o_1, m_1), t_1 = timed(one, params, init_adamw(params), b)
+        mu_1 = o_1.mu
+        del o_1
+        gc.collect()
+        p_sh = steps.place(params, step.in_shardings[0])
+        o_sh = steps.place(init_adamw(params), step.in_shardings[1])
+        (p_s, o_s, m_s), t_first = timed(step, p_sh, o_sh, b)
+        del p_s, o_s
+        (p_s, o_s, m_s), t_s = timed(step, p_sh, o_sh, b)
+        peak = torch.cuda.max_memory_allocated()
+        loss_s, loss_1 = float(full_tensor(m_s["loss"])), float(m_1["loss"])
+        if not abs(loss_s - loss_1) <= TRAIN_LOSS_RTOL * abs(loss_1):
+            fail(f"mesh train: loss {loss_s} sharded, {loss_1} unsharded")
+        worst, worst_name, g_bit = 0.0, "", True
+        for (name, x), (_, y) in zip(named_leaves(o_s.mu),
+                                     named_leaves(mu_1)):
+            err, bit = same(x, y)
+            scale = float(y.abs().max())
+            g_bit = g_bit and bit
+            if not err <= TRAIN_GRAD_REL * scale:
+                fail(f"mesh train: gradient of {name} off by {err:.3e} "
+                     f"(max {scale:.3e})")
+            if scale > 0 and err / scale > worst:
+                worst, worst_name = err / scale, name
+        p_err, p_bit = 0.0, True
+        for (_, x), (_, y) in zip(named_leaves(p_s), named_leaves(p_1)):
+            e, bit = same(x, y)
+            p_err, p_bit = max(p_err, e), p_bit and bit
+        print(f"  [{card}] mesh train {cfg.name} {shape.batch} x "
+              f"{shape.seq} (remat, chunked attention, microbatches "
+              f"{meta['microbatches']}): loss {loss_s:.7f} vs {loss_1:.7f} "
+              f"(rel {TRAIN_LOSS_RTOL}, bitwise {loss_s == loss_1}); "
+              f"gradients bitwise {g_bit}, worst leaf "
+              f"{worst_name or 'none'} at {worst:.3e} of its max |g| (gate "
+              f"{TRAIN_GRAD_REL}); params "
+              f"after the step within {p_err:.3e} (bitwise {p_bit}; not "
+              f"gated); sharded step {t_s * 1e3:.1f} ms (first call "
+              f"{t_first * 1e3:.1f} ms), unsharded {t_1 * 1e3:.1f} ms; "
+              f"max_memory_allocated {peak / 2**30:.2f} GiB", flush=True)
+        del p_s, o_s, m_s, p_1, mu_1, p_sh, o_sh, params
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = ops.launch_counts()
+    if any(counts.values()):
+        fail(f"mesh: a serving kernel launched on the sharded steps: "
+             f"{counts}")
+    print(f"  [{card}] mesh: process group destroyed; no CUDA kernel of "
+          f"the port launched ({sum(counts.values())} launches); phase "
+          f"{time.monotonic() - t_phase:.1f} s", flush=True)
 
 
 COPY_KERNELS = ("quantize_kernel", "dequantize_kernel", "gather_kernel")
@@ -2742,6 +3039,9 @@ def main() -> None:
 
     phase("train")
     train_phase(card)
+
+    phase("mesh")
+    mesh_phase(card)
 
     if "--profile" in sys.argv[1:]:
         phase("profile")

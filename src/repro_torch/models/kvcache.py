@@ -11,6 +11,7 @@ them.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 
 def init_attn_cache(n_layers: int, batch: int, max_seq: int,
@@ -23,9 +24,25 @@ def init_attn_cache(n_layers: int, batch: int, max_seq: int,
 
 
 def _insert(k_cache, v_cache, k_new, v_new, slots):
+    if isinstance(k_cache, DTensor):
+        return _insert_masked(k_cache, v_cache, k_new, v_new, slots)
     b_idx = torch.arange(k_new.shape[0], device=k_new.device)[:, None]
     k_cache[b_idx, slots] = k_new.to(k_cache.dtype)
     v_cache[b_idx, slots] = v_new.to(v_cache.dtype)
+    return k_cache, v_cache
+
+
+def _insert_masked(k_cache, v_cache, k_new, v_new, slots):
+    """One new position per row into DTensor caches.  DTensor refuses an
+    in-place scatter into a sharded dim, so the position is written by a
+    mask (exact: a select), each rank over its own batch and sequence
+    shard, and copied back into the caches in place."""
+    if k_new.shape[1] != 1:
+        raise ValueError("a DTensor cache takes one new position per row")
+    pos = torch.arange(k_cache.shape[1], device=k_cache.device)
+    hit = (pos[None, :] == slots)[..., None, None]          # (B, Smax, 1, 1)
+    k_cache.copy_(torch.where(hit, k_new.to(k_cache.dtype), k_cache))
+    v_cache.copy_(torch.where(hit, v_new.to(v_cache.dtype), v_cache))
     return k_cache, v_cache
 
 

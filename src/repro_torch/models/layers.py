@@ -101,23 +101,31 @@ def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
     return k[:, :, :, None, :].expand(b, s, h, groups, d).reshape(
         b, s, h * groups, d)
 
+
+def no_shard(x, kind):
+    """The identity ``shard_fn``: every placement hook's default."""
+    return x
+
+
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     *, causal: bool = True, q_offset: int = 0,
                     kv_len: Optional[torch.Tensor] = None,
-                    window: int = 0) -> torch.Tensor:
+                    window: int = 0, shard_fn=None) -> torch.Tensor:
     """Reference attention.
 
     q: (B, Sq, H, D);  k, v: (B, Skv, Hkv, D).  ``q_offset``: absolute
     position of q[0]; ``kv_len``: per-batch valid KV length; ``window``:
     sliding-window size (0 = full).  GQA contracts against the un-repeated
-    K/V, as the reference does.
+    K/V, as the reference does.  ``shard_fn(x, kind)`` places the score
+    and probability tiles (kind ``attn_scores``); None is the identity.
     """
+    sh = shard_fn or no_shard
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = h // hkv
     q5 = q.reshape(b, sq, hkv, g, d)
     scores = torch.einsum("bqkgd,bskd->bkgqs", q5, k) / math.sqrt(d)
-    scores = scores.float()
+    scores = sh(scores.float(), "attn_scores")
     q_pos = torch.arange(sq, device=q.device) + q_offset
     k_pos = torch.arange(skv, device=q.device)
     mask = (q_pos[:, None] >= k_pos[None, :]) if causal else \
@@ -128,7 +136,7 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if kv_len is not None:
         valid = k_pos[None, :] < kv_len[:, None]              # (B, Skv)
         scores = scores.masked_fill(~valid[:, None, None, None, :], NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    probs = sh(torch.softmax(scores, dim=-1).to(q.dtype), "attn_scores")
     o = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
     return o.reshape(b, sq, h, d)
 
@@ -177,19 +185,22 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, kv_len: torch.Tensor, *,
-                     window: int = 0) -> torch.Tensor:
+                     window: int = 0, shard_fn=None) -> torch.Tensor:
     """Single-step decode over a padded contiguous cache.
 
     q: (B, 1, H, D); caches: (B, Smax, Hkv, D); kv_len: (B,) valid
     lengths.  With ``window`` > 0 only the trailing ``window`` positions
     attend.  GQA contracts q as (B, Hkv, G, D) against the un-repeated
-    cache."""
+    cache.  ``shard_fn(x, kind)`` places the (B, Hkv, G, Skv) scores
+    (kind ``dec_scores``: sequence-sharded like the cache, so the softmax
+    and PV reductions combine partial results); None is the identity."""
+    sh = shard_fn or no_shard
     b, _, h, d = q.shape
     skv, hkv = k_cache.shape[1], k_cache.shape[2]
     g = h // hkv
     q5 = q.reshape(b, hkv, g, d)
     s = torch.einsum("bkgd,bskd->bkgs", q5, k_cache).float()
-    s = s / math.sqrt(d)                                      # (B,Hkv,G,Skv)
+    s = sh(s / math.sqrt(d), "dec_scores")                    # (B,Hkv,G,Skv)
     k_pos = torch.arange(skv, device=q.device)[None, :]
     valid = k_pos < kv_len[:, None]
     if window > 0:

@@ -30,12 +30,13 @@ import math
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import checkpoint
 
 from . import kvcache, moe
 from .layers import (apply_norm, apply_rope, chunked_attention,
                      decode_attention, dense_attention, dense_init, gelu_mlp,
-                     rmsnorm, sinusoidal_positions, swiglu)
+                     no_shard, rmsnorm, sinusoidal_positions, swiglu)
 from .ssm import (SSMSpec, SSMState, init_ssm, spec_for, ssd_chunked,
                   ssd_decode_step)
 
@@ -131,13 +132,15 @@ class ArchConfig:
 
 def resolve_device(device) -> torch.device:
     """The port's entry points run on the card unless the caller asks for
-    the CPU; a CUDA device with no card raises instead of falling back."""
+    the CPU; a CUDA device with no card raises instead of falling back.
+    ``meta`` (shapes and dtypes, no memory) serves the step builders'
+    stand-in trees (``launch.steps``)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "device 'cuda' requested but torch.cuda.is_available() is "
             "False; pass device='cpu' to run the plain PyTorch path")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 
@@ -295,22 +298,26 @@ def _qkv(cfg: ArchConfig, ap: dict, x: torch.Tensor):
     return q, k, v
 
 
-def _attend(q, k, v, *, causal: bool, attn_impl: str, window: int = 0):
+def _attend(q, k, v, *, causal: bool, attn_impl: str, window: int = 0,
+            shard_fn=None):
     if attn_impl == "chunked":
         return chunked_attention(q, k, v, causal=causal, window=window)
-    return dense_attention(q, k, v, causal=causal, window=window)
+    return dense_attention(q, k, v, causal=causal, window=window,
+                           shard_fn=shard_fn)
 
 
 def _attn_block(cfg: ArchConfig, ap: dict, x: torch.Tensor,
                 positions: torch.Tensor, *, causal: bool,
-                attn_impl: str = "dense"):
-    """Returns (out, k, v) — k/v pre-repeat, post-rope, for cache storage."""
+                attn_impl: str = "dense", shard_fn=None):
+    """Returns (out, k, v) — k/v pre-repeat, post-rope, for cache storage.
+    ``shard_fn`` reaches the dense core's score tiles (the chunked core
+    takes none, as in the reference)."""
     q, k, v = _qkv(cfg, ap, x)
     if cfg.rope_fraction > 0:
         q = apply_rope(q, positions, cfg.rope_fraction, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_fraction, cfg.rope_theta)
     o = _attend(q, k, v, causal=causal, attn_impl=attn_impl,
-                window=cfg.window)
+                window=cfg.window, shard_fn=shard_fn)
     b, s = x.shape[:2]
     out = o.reshape(b, s, -1) @ ap["wo"]
     return out, k, v
@@ -321,11 +328,27 @@ def _mlp(cfg: ArchConfig, lp: dict, h: torch.Tensor) -> torch.Tensor:
         else gelu_mlp(h, lp["mlp"])
 
 
-def _ffn(cfg: ArchConfig, lp: dict, h: torch.Tensor) -> torch.Tensor:
-    """The layer's feed-forward: routed experts (moe) or the dense MLP."""
+def _ffn(cfg: ArchConfig, lp: dict, h: torch.Tensor,
+         shard_fn=None) -> torch.Tensor:
+    """The layer's feed-forward: routed experts (moe) or the dense MLP.
+    ``moe_forward`` is called with the hook only when there is one, so a
+    caller that wraps it sees the plain call."""
     if cfg.family == "moe":
-        return moe.moe_forward(h, lp["moe"], cfg.top_k, cfg.capacity_factor)
+        kw = {} if shard_fn is None else {"shard_fn": shard_fn}
+        return moe.moe_forward(h, lp["moe"], cfg.top_k, cfg.capacity_factor,
+                               **kw)
     return _mlp(cfg, lp, h)
+
+
+def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  A DTensor table is first gathered whole onto
+    every rank (an all-gather for the lookup alone; the leaf stays
+    sharded): DTensor's own lookup over a vocab-sharded table yields a
+    MaskPartial whose redistribution fails in the backward."""
+    if isinstance(table, DTensor):
+        table = table.redistribute(
+            table.device_mesh, [Replicate()] * table.device_mesh.ndim)
+    return table[tokens]
 
 
 def _hybrid_mix(lp: dict, a_out: torch.Tensor, s_out: torch.Tensor):
@@ -341,21 +364,25 @@ def forward_train(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
                   attn_impl: str = "dense", remat: bool = False,
                   enc_inputs: Optional[torch.Tensor] = None,
                   collect_cache: bool = False, last_only: bool = False,
-                  max_seq: int = 0):
+                  max_seq: int = 0, shard_fn=None):
     """The body of ``forward``, without ``torch.no_grad``: autograd records
     it when grad is enabled (the training loss calls it so).  ``remat``
     runs each decoder layer, encoder layer and enc-dec decoder layer under
     ``torch.utils.checkpoint`` (non-reentrant), as the reference wraps
-    each scanned layer in ``jax.checkpoint``."""
+    each scanned layer in ``jax.checkpoint``.  ``shard_fn(x, kind)`` is
+    called where the reference calls it, with its kinds (``act``,
+    ``attn_scores``, ``moe_dispatch`` / ``moe_combine``, ``kv_stack``,
+    ``logits``), once per layer; None is the identity."""
+    sh = shard_fn or no_shard
     b, s = tokens.shape
-    x = params["embed"][tokens]
+    x = sh(_embed(params["embed"], tokens), "act")
     positions = torch.arange(s, device=tokens.device)[None, :]
 
     if cfg.family == "encdec":
-        enc_out = _encoder(cfg, params, enc_inputs, attn_impl, remat)
+        enc_out = _encoder(cfg, params, enc_inputs, attn_impl, sh, remat)
         logits, cache = _decoder_encdec(cfg, params, x, positions, enc_out,
-                                        attn_impl, collect_cache, max_seq,
-                                        last_only, remat)
+                                        attn_impl, sh, collect_cache,
+                                        max_seq, last_only, remat)
         return (logits, cache) if collect_cache else logits
 
     spec = cfg.ssm_spec if cfg.family in ("ssm", "hybrid") else None
@@ -367,16 +394,18 @@ def forward_train(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
             mix, st = ssd_chunked(lp["ssm"], spec, h)
         elif cfg.family == "hybrid":
             a_out, k, v = _attn_block(cfg, lp["attn"], h, positions,
-                                      causal=True, attn_impl=attn_impl)
+                                      causal=True, attn_impl=attn_impl,
+                                      shard_fn=sh)
             s_out, st = ssd_chunked(lp["ssm"], spec, h)
             mix = _hybrid_mix(lp, a_out, s_out)
         else:
             mix, k, v = _attn_block(cfg, lp["attn"], h, positions,
-                                    causal=True, attn_impl=attn_impl)
-        x = x + mix
+                                    causal=True, attn_impl=attn_impl,
+                                    shard_fn=sh)
+        x = sh(x + mix, "act")
         if cfg.family != "ssm":
             h2 = apply_norm(x, lp["ln2"], cfg.norm)
-            x = x + _ffn(cfg, lp, h2)
+            x = sh(x + _ffn(cfg, lp, h2, shard_fn), "act")
         return x, k, v, st
 
     call = _layer_call(layer, remat)
@@ -385,15 +414,15 @@ def forward_train(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
         x, k, v, st = call(x, lp)
         if collect_cache:
             if k is not None:
-                extras["k"].append(k)
-                extras["v"].append(v)
+                extras["k"].append(sh(k, "kv_stack"))
+                extras["v"].append(sh(v, "kv_stack"))
             if st is not None:
                 extras["ssm"].append(st.ssm)
                 extras["conv"].append(st.conv)
     x = apply_norm(x, params["ln_f"], cfg.norm)
     if last_only:
         x = x[:, -1:]
-    logits = x @ params["lm_head"].T
+    logits = sh(x @ params["lm_head"].T, "logits")
     if not collect_cache:
         return logits
     stacked = {key: torch.stack(vals) for key, vals in extras.items()
@@ -406,17 +435,18 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
             attn_impl: str = "dense",
             enc_inputs: Optional[torch.Tensor] = None,
             collect_cache: bool = False, last_only: bool = False,
-            max_seq: int = 0):
+            max_seq: int = 0, shard_fn=None):
     """Token logits (B, S, V) for a full sequence (``last_only``: (B, 1, V)
     for the final position only).  ``collect_cache`` returns (logits,
     serving cache of ``max_seq`` positions) instead, as the reference's
     ``forward`` does; without it only the logits come back (the serving
     engine keeps its cache in the paged pool).  Runs under
     ``torch.no_grad``, so serving records no graph even when the
-    parameters require grad."""
+    parameters require grad.  ``shard_fn``: as ``forward_train``."""
     return forward_train(cfg, params, tokens, attn_impl=attn_impl,
                          enc_inputs=enc_inputs, collect_cache=collect_cache,
-                         last_only=last_only, max_seq=max_seq)
+                         last_only=last_only, max_seq=max_seq,
+                         shard_fn=shard_fn)
 
 
 def _build_cache(cfg: ArchConfig, extras: dict, b: int, s: int,
@@ -451,13 +481,15 @@ def _build_cache(cfg: ArchConfig, extras: dict, b: int, s: int,
 # --------------------------------------------------------------------------
 
 def _encoder(cfg: ArchConfig, params: dict, enc_inputs: torch.Tensor,
-             attn_impl: str, remat: bool = False) -> torch.Tensor:
+             attn_impl: str, sh=no_shard,
+             remat: bool = False) -> torch.Tensor:
     if enc_inputs is None:
         raise ValueError(f"{cfg.name!r} is an encoder-decoder: pass "
                          "enc_inputs (B, frames, d_model)")
     n_frames = enc_inputs.shape[1]
-    x = enc_inputs + sinusoidal_positions(
-        n_frames, cfg.d_model, enc_inputs.dtype, enc_inputs.device)[None]
+    x = sh(enc_inputs + sinusoidal_positions(
+        n_frames, cfg.d_model, enc_inputs.dtype, enc_inputs.device)[None],
+        "act")
     positions = torch.arange(n_frames, device=x.device)[None, :]
     enc_cfg = dataclasses.replace(cfg, family="dense", rope_fraction=0.0)
 
@@ -465,9 +497,9 @@ def _encoder(cfg: ArchConfig, params: dict, enc_inputs: torch.Tensor,
         h = apply_norm(x, lp["ln1"], cfg.norm)
         mix, _, _ = _attn_block(enc_cfg, lp["attn"], h, positions,
                                 causal=False, attn_impl=attn_impl)
-        x = x + mix
+        x = sh(x + mix, "act")
         h2 = apply_norm(x, lp["ln2"], cfg.norm)
-        return x + _mlp(cfg, lp, h2)
+        return sh(x + _mlp(cfg, lp, h2), "act")
 
     call = _layer_call(layer, remat)
     for lp in unstack_layers(params["enc_layers"], cfg.n_enc_layers):
@@ -488,7 +520,7 @@ def _cross_kv(cfg: ArchConfig, xp: dict, enc_out: torch.Tensor):
 
 def _decoder_encdec(cfg: ArchConfig, params: dict, x: torch.Tensor,
                     positions: torch.Tensor, enc_out: torch.Tensor,
-                    attn_impl: str, collect_cache: bool, max_seq: int,
+                    attn_impl: str, sh, collect_cache: bool, max_seq: int,
                     last_only: bool = False, remat: bool = False):
     b, s = x.shape[:2]
     x = x + sinusoidal_positions(s, cfg.d_model, x.dtype, x.device)[None]
@@ -498,16 +530,16 @@ def _decoder_encdec(cfg: ArchConfig, params: dict, x: torch.Tensor,
         h = apply_norm(x, lp["ln1"], cfg.norm)
         mix, k, v = _attn_block(dec_cfg, lp["attn"], h, positions,
                                 causal=True, attn_impl=attn_impl)
-        x = x + mix
+        x = sh(x + mix, "act")
         # cross attention: queries from the decoder, keys / values from
         # the encoder states
         hx = apply_norm(x, lp["ln_x"], cfg.norm)
         qx, _, _ = _qkv(dec_cfg, lp["xattn"], hx)
         kx_e, vx_e = _cross_kv(cfg, lp["xattn"], enc_out)
         xo = _attend(qx, kx_e, vx_e, causal=False, attn_impl=attn_impl)
-        x = x + xo.reshape(b, s, -1) @ lp["xattn"]["wo"]
+        x = sh(x + xo.reshape(b, s, -1) @ lp["xattn"]["wo"], "act")
         h2 = apply_norm(x, lp["ln2"], cfg.norm)
-        return x + _mlp(cfg, lp, h2), k, v, kx_e, vx_e
+        return sh(x + _mlp(cfg, lp, h2), "act"), k, v, kx_e, vx_e
 
     call = _layer_call(layer, remat)
     extras: dict[str, list] = {"k": [], "v": [], "cross_k": [],
@@ -517,11 +549,11 @@ def _decoder_encdec(cfg: ArchConfig, params: dict, x: torch.Tensor,
         if collect_cache:
             for key, val in (("k", k), ("v", v), ("cross_k", kx_e),
                              ("cross_v", vx_e)):
-                extras[key].append(val)
+                extras[key].append(sh(val, "kv_stack"))
     x = apply_norm(x, params["ln_f"], cfg.norm)
     if last_only:
         x = x[:, -1:]
-    logits = x @ params["lm_head"].T
+    logits = sh(x @ params["lm_head"].T, "logits")
     cache = None
     if collect_cache:
         cache = _build_cache(cfg, {"k": torch.stack(extras["k"]),
@@ -539,24 +571,29 @@ def _decoder_encdec(cfg: ArchConfig, params: dict, x: torch.Tensor,
 @torch.no_grad()
 def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
             max_seq: int, *, attn_impl: str = "dense",
-            enc_inputs: Optional[torch.Tensor] = None):
+            enc_inputs: Optional[torch.Tensor] = None, shard_fn=None):
     """Full-prompt prefill.  Returns (last-position logits (B, V), serving
-    cache)."""
+    cache).  ``shard_fn``: as ``forward_train``."""
     logits, cache = forward(cfg, params, tokens, attn_impl=attn_impl,
                             enc_inputs=enc_inputs, collect_cache=True,
-                            last_only=True, max_seq=max_seq)
+                            last_only=True, max_seq=max_seq,
+                            shard_fn=shard_fn)
     return logits[:, -1], cache
 
 
 @torch.no_grad()
 def decode_step(cfg: ArchConfig, params: dict, cache: dict,
-                tokens: torch.Tensor):
+                tokens: torch.Tensor, *, shard_fn=None):
     """One decode step.  tokens: (B,) int.  Returns (logits (B, V), the
     new cache).  The cache's K/V and state tensors are updated IN PLACE
     (the reference donates them to its scan carry); the returned dict
-    holds them with ``len`` advanced by one."""
+    holds them with ``len`` advanced by one.  ``shard_fn(x, kind)`` is
+    called where the reference calls it (``act_decode``, ``dec_scores``,
+    ``moe_dispatch`` / ``moe_combine``, ``logits_decode``); None is the
+    identity."""
+    sh = shard_fn or no_shard
     b = tokens.shape[0]
-    x = params["embed"][tokens.long()][:, None, :]
+    x = sh(_embed(params["embed"], tokens.long())[:, None, :], "act_decode")
     lens = cache["len"]
     positions = lens[:, None]
     spec = cfg.ssm_spec if cfg.family in ("ssm", "hybrid") else None
@@ -592,11 +629,12 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict,
                 kc, vc = kvcache.update_ring_cache(
                     cache["k"][li], cache["v"][li], k, v, lens, cfg.window)
                 o = decode_attention(q, kc, vc,
-                                     torch.clamp(lens + 1, max=cfg.window))
+                                     torch.clamp(lens + 1, max=cfg.window),
+                                     shard_fn=sh)
             else:
                 kc, vc = kvcache.update_layer_cache(
                     cache["k"][li], cache["v"][li], k, v, lens)
-                o = decode_attention(q, kc, vc, lens + 1)
+                o = decode_attention(q, kc, vc, lens + 1, shard_fn=sh)
             a_out = o.reshape(b, 1, -1) @ lp["attn"]["wo"]
             if cfg.family == "hybrid":
                 mix = _hybrid_mix(lp, a_out, ssm_step(lp, li, h))
@@ -609,13 +647,14 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict,
             cross_k = cache["cross_k"][li]
             enc_len = torch.full((b,), cross_k.shape[1], dtype=torch.int32,
                                  device=x.device)
-            xo = decode_attention(qx, cross_k, cache["cross_v"][li], enc_len)
+            xo = decode_attention(qx, cross_k, cache["cross_v"][li], enc_len,
+                                  shard_fn=sh)
             x = x + xo.reshape(b, 1, -1) @ lp["xattn"]["wo"]
         if cfg.family != "ssm":
             h2 = apply_norm(x, lp["ln2"], cfg.norm)
-            x = x + _ffn(cfg, lp, h2)
+            x = x + _ffn(cfg, lp, h2, shard_fn)
     x = apply_norm(x, params["ln_f"], cfg.norm)
-    logits = (x @ params["lm_head"].T)[:, 0]
+    logits = sh((x @ params["lm_head"].T)[:, 0], "logits_decode")
     new_cache = dict(cache)
     new_cache["len"] = lens + 1
     return logits, new_cache

@@ -27,6 +27,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from .layers import no_shard
+
 
 class Routing(NamedTuple):
     gates: torch.Tensor      # (B, S, k) softmax over the top-k logits
@@ -83,8 +85,13 @@ def _shared(x: torch.Tensor, sp: dict) -> torch.Tensor:
 
 
 def moe_forward(x: torch.Tensor, p: dict, top_k: int,
-                capacity_factor: float = 1.25) -> torch.Tensor:
-    """x: (B, S, d) -> (B, S, d)."""
+                capacity_factor: float = 1.25,
+                shard_fn=None) -> torch.Tensor:
+    """x: (B, S, d) -> (B, S, d).  ``shard_fn(x, kind)`` places the
+    (B, E, C, d) dispatch buffer (``moe_dispatch``: expert-sharded, the
+    all-to-all of expert parallelism) and the experts' outputs
+    (``moe_combine``); None is the identity."""
+    sh = shard_fn or no_shard
     b, s, d = x.shape
     n_exp = p["router"].shape[1]
     r = route(x, p, top_k, capacity_factor)
@@ -98,13 +105,14 @@ def moe_forward(x: torch.Tensor, p: dict, top_k: int,
     buf = x.new_zeros((b, n_exp * cap + 1, d))
     rows = torch.arange(b, device=x.device)[:, None].expand_as(cell)
     buf.index_put_((rows, cell), x_rep)
-    buf = buf[:, :n_exp * cap].reshape(b, n_exp, cap, d)
+    buf = sh(buf[:, :n_exp * cap].reshape(b, n_exp, cap, d), "moe_dispatch")
 
     # expert FFN batched over the expert axis: (E, B*C, d)
     h = buf.transpose(0, 1).reshape(n_exp, b * cap, d)
     y_e = _swiglu_e(h, p["w_gate"].to(x.dtype), p["w_up"].to(x.dtype),
                     p["w_down"].to(x.dtype))
-    y_e = y_e.reshape(n_exp, b, cap, d).transpose(0, 1)      # (B, E, C, d)
+    y_e = sh(y_e.reshape(n_exp, b, cap, d).transpose(0, 1),  # (B, E, C, d)
+             "moe_combine")
 
     # gather + gate combine: a dropped slot reads cell (e, C - 1) and is
     # zeroed, as the reference's ``where(keep, ., 0)``

@@ -110,10 +110,15 @@ class CheckpointManager:
         with open(p) as f:
             return int(f.read().strip())
 
-    def restore(self, template, step: Optional[int] = None, device=None):
+    def restore(self, template, step: Optional[int] = None, device=None,
+                shardings=None):
         """Restore into the structure of ``template``: every leaf a tensor,
         on ``device``, or (None) where the template's leaf lives (the CPU
-        for a leaf that is not a tensor).  Returns (tree, step)."""
+        for a leaf that is not a tensor).  ``shardings``, a tree like
+        ``template`` of ``distributed.sharding.NamedSharding``s, places
+        each leaf with its placements instead (``distribute_tensor``: a
+        resharding restore, each rank keeping its shard alone).  Returns
+        (tree, step)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
@@ -125,12 +130,20 @@ class CheckpointManager:
         if len(slots) != len(manifest["arrays"]):
             raise ValueError(f"{d} holds {len(manifest['arrays'])} arrays, "
                              f"the template {len(slots)} leaves")
+        places = [None] * len(slots) if shardings is None \
+            else leaves(shardings)
+        if len(places) != len(slots):
+            raise ValueError(f"{len(places)} shardings for "
+                             f"{len(slots)} leaves")
         out = []
-        for meta, slot in zip(manifest["arrays"], slots):
+        for meta, slot, place in zip(manifest["arrays"], slots, places):
             a = data[meta["name"]]
             if _crc32(a) != meta["crc32"]:
                 raise IOError(f"checksum mismatch in {meta['name']} "
                               f"(corrupt checkpoint {d})")
+            if place is not None:
+                out.append(place.place(torch.from_numpy(a)))
+                continue
             where = device if device is not None else (
                 slot.device if isinstance(slot, torch.Tensor) else "cpu")
             out.append(torch.from_numpy(a).to(where))

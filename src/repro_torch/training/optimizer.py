@@ -35,8 +35,8 @@ class AdamWState(NamedTuple):
 
 def init_adamw(params: dict, *, compress: bool = False) -> AdamWState:
     dev = leaves(params)[0].device
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+    # zeros_like: a DTensor parameter's moments take its placements
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=dev),
         mu=tree_map(zeros, params),

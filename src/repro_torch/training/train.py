@@ -13,15 +13,17 @@ chunked attention (plain JAX), so no CUDA kernel of the port lies on
 this path.  ``value_and_grad`` is the counterpart of
 ``jax.value_and_grad`` over a tree of tensors.
 
-The reference's ``shard_fn`` / ``grad_constraint`` hooks (sharding of
-activations and of each microbatch's gradients) are not ported: the port
-trains on one card.
+The reference's hooks are kept: ``shard_fn`` places activations (see
+``models.model.forward_train``) and ``grad_constraint`` places each
+microbatch's gradients.  Both are None (the identity) on one device;
+``launch.steps.build_train_step`` passes them for DTensor parameters.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..models.model import ArchConfig, forward_train
 from .optimizer import AdamWState, adamw_update, global_norm
@@ -33,15 +35,25 @@ def softmax_cross_entropy(logits: torch.Tensor,
     """logits: (B, S, V); labels: (B, S) int -> per-token loss (B, S)."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if isinstance(logits, DTensor):
+        # DTensor's gather over a vocab-sharded dim yields a MaskPartial
+        # that its redistribution cannot reduce; select the label's logit
+        # with a mask instead (exact: one term, the rest zeros), each rank
+        # summing its own vocab shard into a Partial sum
+        vocab = torch.arange(logits.shape[-1], device=labels.device)
+        gold = torch.where(vocab == labels.long()[..., None], logits,
+                           0.0).sum(-1)
+    else:
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return lse - gold
 
 
 def make_loss_fn(cfg: ArchConfig, *, attn_impl: str = "dense",
-                 remat: bool = True):
+                 shard_fn: Optional[Callable] = None, remat: bool = True):
     def loss_fn(params, tokens, labels, enc_inputs=None):
         logits = forward_train(cfg, params, tokens, attn_impl=attn_impl,
-                               remat=remat, enc_inputs=enc_inputs)
+                               remat=remat, enc_inputs=enc_inputs,
+                               shard_fn=shard_fn)
         return softmax_cross_entropy(logits, labels).mean()
     return loss_fn
 
@@ -63,15 +75,26 @@ def value_and_grad(loss_fn: Callable):
 
 
 def make_train_step(cfg: ArchConfig, *, attn_impl: str = "dense",
-                    remat: bool = True, lr: float = 3e-4,
-                    grad_clip: float = 1.0, microbatches: int = 1,
-                    compress_grads: bool = False):
+                    shard_fn: Optional[Callable] = None, remat: bool = True,
+                    lr: float = 3e-4, grad_clip: float = 1.0,
+                    microbatches: int = 1, compress_grads: bool = False,
+                    grad_constraint: Optional[Callable] = None):
     """Builds train_step.  ``microbatches`` > 1 splits the global batch on
     the leading axis and sums the microbatches' gradients in fp32, in
     microbatch order (the reference's ``lax.scan``), trading step latency
-    for activation memory."""
-    grad_fn = value_and_grad(make_loss_fn(cfg, attn_impl=attn_impl,
-                                          remat=remat))
+    for activation memory.
+
+    ``grad_constraint``: optional callback on each microbatch's gradient
+    tree (pinning DTensor gradients to the parameters' placements turns
+    their all-reduce into a reduce-scatter: ZeRO gradient sharding)."""
+    raw_grad = value_and_grad(make_loss_fn(cfg, attn_impl=attn_impl,
+                                           shard_fn=shard_fn, remat=remat))
+
+    def grad_fn(params, tokens, labels, enc=None):
+        loss, g = raw_grad(params, tokens, labels, enc)
+        if grad_constraint is not None:
+            g = grad_constraint(g)
+        return loss, g
 
     def train_step(params, opt_state: AdamWState, batch: dict):
         tokens, labels = batch["tokens"], batch["labels"]
@@ -85,8 +108,8 @@ def make_train_step(cfg: ArchConfig, *, attn_impl: str = "dense",
             mb_enc = (enc.reshape(microbatches, -1, *enc.shape[1:])
                       if enc is not None else None)
             loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            grads = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), params)
             for i in range(microbatches):
                 l_i, g_i = grad_fn(params, mb_tok[i], mb_lab[i],
                                    None if mb_enc is None else mb_enc[i])

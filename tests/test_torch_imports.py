@@ -29,6 +29,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "import repro_torch.examples.shared_prefix\n"
         "import repro_torch.training, repro_torch.launch.train\n"
         "import repro_torch.examples.train_resume\n"
+        "import repro_torch.distributed, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.steps\n"
         "import runpy\n"
         "runpy.run_path('tools/torch_perf_smoke.py', run_name='probe')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
@@ -122,3 +124,31 @@ def test_training_entry_points_raise_without_a_card(monkeypatch):
         train.train(get_smoke("qwen1_5_0_5b"), steps=1)
     with pytest.raises(RuntimeError, match="cuda"):
         train_resume.main(["--steps", "2"])
+
+
+def test_mesh_and_step_builders_raise_without_a_card(monkeypatch):
+    """The meshes and the sharded steps run on the card unless they are
+    given the CPU: with no card they raise before touching a process
+    group."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.distributed import ShardingPolicy
+    from repro_torch.launch import mesh, steps
+
+    class FakeMesh:
+        shape = {"data": 1, "model": 1}
+        axis_names = ("data", "model")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke("qwen1_5_0_5b")
+    policy = ShardingPolicy(FakeMesh())
+    with pytest.raises(RuntimeError, match="cuda"):
+        mesh.make_production_mesh()
+    with pytest.raises(RuntimeError, match="cuda"):
+        mesh.make_debug_mesh((1, 1))
+    for build in (steps.build_train_step, steps.build_prefill_step,
+                  steps.build_serve_step):
+        with pytest.raises(RuntimeError, match="cuda"):
+            build(cfg, policy)
+    for shape in steps.SHAPES:
+        with pytest.raises(RuntimeError, match="cuda"):
+            steps.build_cell(cfg, shape, policy)
