@@ -215,6 +215,15 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                max |g|).  Whether each is bitwise, times and peak memory
                printed; no kernel of the port launched; the process group
                destroyed at the end.
+ 16. dryrun  — ``launch/dryrun.py``'s cost model held to the card: on a
+               one-rank NCCL world and a (1, 1) mesh, Qwen1.5-0.5B at full
+               width in bf16 (weights from seed 0), at the mesh phase's
+               shapes, each step traced on meta tensors and priced, then
+               run: the card's ``FlopCounterMode`` flops equal the
+               prediction, the placed inputs' bytes equal the predicted
+               argument bytes, the median of 5 timed steps is at least
+               max(compute, memory) of the H100 roofline, and the peak
+               above the inputs is at least 0.95 x the predicted peak.
 
 fp32 matmuls run in full fp32: TF32 is switched off for cuBLAS and cuDNN.
 The last two lines are the ``{"kernels": ...}`` JSON and the
@@ -2767,6 +2776,168 @@ def mesh_phase(card: str, dev="cuda") -> None:
           f"{time.monotonic() - t_phase:.1f} s", flush=True)
 
 
+# --------------------------------------------------------------------------
+# dryrun: launch/dryrun.py's prediction held to the card's own step
+# --------------------------------------------------------------------------
+
+DRYRUN_TIMED = 5               # timed steps after the warm-up (median)
+DRYRUN_PEAK_SHARE = 0.95       # measured peak / predicted peak, at least
+
+
+def dryrun_inputs(kind: str, structs: tuple, params: dict, cfg,
+                  dev) -> tuple:
+    """The card's inputs for a step whose stand-ins are ``structs``: the
+    parameters from ``init_params``, the rest drawn to the stand-ins'
+    shapes and dtypes (seed 5)."""
+    from repro_torch.training import TokenPipeline, init_adamw
+
+    g = torch.Generator(dev).manual_seed(5)
+
+    def tokens(like):
+        return torch.randint(0, cfg.vocab, tuple(like.shape), generator=g,
+                             device=dev, dtype=like.dtype)
+
+    if kind == "prefill":
+        return (params, tokens(structs[1]))
+    if kind == "serve":
+        cache = {k: (torch.randn(tuple(v.shape), generator=g, device=dev,
+                                 dtype=v.dtype) if v.is_floating_point()
+                     else torch.full(tuple(v.shape), MESH_PROMPT,
+                                     dtype=v.dtype, device=dev))
+                 for k, v in structs[1].items()}
+        return (params, cache, tokens(structs[2]))
+    batch = structs[2]["tokens"].shape
+    b = {k: torch.as_tensor(v).to(dev) for k, v in TokenPipeline(
+        cfg.vocab, batch[0], batch[1], seed=3).batch_at(0).items()}
+    return (params, init_adamw(params), b)
+
+
+def dryrun_phase(card: str, dev="cuda") -> None:
+    """``launch/dryrun.py``'s cost model against the card's own step: on
+    a one-rank world (NCCL on the card) and a (1, 1) ``("data",
+    "model")`` mesh, Qwen1.5-0.5B at full width in bf16 (parameters from
+    ``init_params``, seed 0), at the mesh phase's reduced shapes, each
+    step is first traced on meta tensors (``hlo_cost.trace_step``, priced
+    by ``dryrun.price``) and then run on the card.  Gates: the real
+    step's flops (``FlopCounterMode``; one rank, so global = local) equal
+    the prediction; the placed inputs' bytes equal the predicted
+    ``argument``; the median of 5 timed steps is at least the roofline
+    bound max(compute_s, memory_s); the step's peak above what was
+    allocated before it is at least 0.95 x the predicted ``peak`` (the
+    trace frees a buffer at its last use, eager PyTorch never sooner).
+    No kernel of the port lies on this path."""
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get
+    from repro_torch.distributed import ShardingPolicy
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, hlo_cost, steps
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.model import init_params
+    from repro_torch.training.tree import leaves
+
+    t_phase = time.monotonic()
+    ops.reset_launch_counts()
+    cfg = get(MESH_ARCH)
+    dist.init_process_group("nccl" if dev == "cuda" else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_debug_mesh((1, 1), ("data", "model"),
+                               device_type=torch.device(dev).type)
+        params = init_params(cfg, torch.Generator(dev).manual_seed(0),
+                             dtype=steps.COMPUTE_DTYPE, device=dev)
+        for kind, spec in (("prefill", MESH_PREFILL), ("serve", MESH_DECODE),
+                           ("train", MESH_TRAIN)):
+            shape = steps.ShapeSpec(*spec)
+            pol = ShardingPolicy(mesh, mode="train" if kind == "train"
+                                 else "serve")
+            step, structs, meta = steps.build_cell(cfg, shape, pol,
+                                                   device=dev)
+            t0 = time.monotonic()
+            graph = hlo_cost.trace_step(step, structs)
+            t_trace = time.monotonic() - t0
+            pred = dryrun.price(graph, cfg, shape, chips=1)
+            mem, roof = pred["memory"], pred["roofline"]
+
+            args = dryrun_inputs(kind, structs, params, cfg, dev)
+            placed = tuple(steps.place(a, s)
+                           for a, s in zip(args, step.in_shardings))
+            arg_bytes = sum(x.to_local().numel()
+                            * x.to_local().element_size()
+                            for x in leaves(placed))
+            out = step(*placed)                            # warm-up
+            del out
+            with FlopCounterMode(display=False) as fc:
+                out = step(*placed)
+            flops = fc.get_total_flops()
+            del out
+            times, peak = [], 0
+            for i in range(DRYRUN_TIMED):
+                gc.collect()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = step(*placed)
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end) / 1e3)
+                peak = max(peak, torch.cuda.max_memory_allocated() - before)
+                probe = full_tensor(out[-1]["loss"] if kind == "train"
+                                    else out[0])
+                if not bool(torch.isfinite(probe).all()):
+                    fail(f"dryrun {kind}: a non-finite output")
+                del out, probe
+            t_step = float(np.median(times))
+            bound_s = max(roof["compute_s"], roof["memory_s"])
+            print(f"  [{card}] dryrun {kind} {cfg.name} bf16 {shape.batch} "
+                  f"x {shape.seq}: traced in {t_trace:.1f} s "
+                  f"({len(graph.graph.nodes)} nodes); flops predicted "
+                  f"{pred['flops_per_device']}, counted on the card "
+                  f"{flops} (ratio {flops / pred['flops_per_device']:.6f}); "
+                  f"argument bytes predicted {mem['argument']}, placed "
+                  f"{arg_bytes}; bytes predicted {pred['bytes_per_device']}"
+                  f"; step {t_step * 1e3:.3f} ms (median of "
+                  f"{DRYRUN_TIMED}), bound {bound_s * 1e3:.3f} ms "
+                  f"(compute {roof['compute_s'] * 1e3:.3f}, memory "
+                  f"{roof['memory_s'] * 1e3:.3f}; step / bound "
+                  f"{t_step / bound_s:.2f}); peak above the inputs "
+                  f"{peak} B, predicted {mem['peak']} B (ratio "
+                  f"{peak / mem['peak']:.4f}, gate {DRYRUN_PEAK_SHARE}); "
+                  f"per-device total predicted "
+                  f"{mem['per_device_total'] / 2**30:.3f} GiB", flush=True)
+            if flops != pred["flops_per_device"]:
+                fail(f"dryrun {kind}: {flops} flops on the card, "
+                     f"{pred['flops_per_device']} predicted")
+            if arg_bytes != mem["argument"]:
+                fail(f"dryrun {kind}: {arg_bytes} argument bytes placed, "
+                     f"{mem['argument']} predicted")
+            if not t_step >= bound_s:
+                fail(f"dryrun {kind}: a step of {t_step * 1e3:.3f} ms is "
+                     f"faster than its bound {bound_s * 1e3:.3f} ms")
+            if not peak >= DRYRUN_PEAK_SHARE * mem["peak"]:
+                fail(f"dryrun {kind}: peak {peak} B below "
+                     f"{DRYRUN_PEAK_SHARE} x the predicted {mem['peak']} B")
+            del placed, args, step, structs, graph
+            gc.collect()
+            torch.cuda.empty_cache()
+        del params
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = ops.launch_counts()
+    if any(counts.values()):
+        fail(f"dryrun: a serving kernel launched on the sharded steps: "
+             f"{counts}")
+    print(f"  [{card}] dryrun: process group destroyed; no CUDA kernel of "
+          f"the port launched; phase {time.monotonic() - t_phase:.1f} s",
+          flush=True)
+
+
 COPY_KERNELS = ("quantize_kernel", "dequantize_kernel", "gather_kernel")
 SCHED_KEYS = ("iterations", "decode_launches", "packed_prefill_calls",
               "prefill_tokens", "evictions", "offload_blocks", "tdg_ratio")
@@ -3042,6 +3213,9 @@ def main() -> None:
 
     phase("mesh")
     mesh_phase(card)
+
+    phase("dryrun")
+    dryrun_phase(card)
 
     if "--profile" in sys.argv[1:]:
         phase("profile")

@@ -172,7 +172,11 @@ def build_train_step(cfg: ArchConfig, policy: ShardingPolicy,
                      microbatches: Optional[int] = None,
                      compress_grads: bool = False,
                      attn_impl: Optional[str] = None,
-                     grad_rs: bool = False, *, device="cuda"):
+                     grad_rs: bool = False, *, shape: Shape = "train_4k",
+                     device="cuda"):
+    """``shape`` sets the batch's stand-ins (``structs[2]``); the
+    microbatch count and the attention core follow ``train_4k`` as in the
+    reference, whatever the shape."""
     _check(policy, device)
     mb = (default_microbatches(cfg, policy)
           if microbatches is None else microbatches)
@@ -209,7 +213,7 @@ def build_train_step(cfg: ArchConfig, policy: ShardingPolicy,
     out_sh = (named(mesh, p_specs), named(mesh, opt_specs),
               {"loss": NamedSharding(mesh, P()),
                "grad_norm": NamedSharding(mesh, P())})
-    structs = (p_struct, opt_struct, input_specs(cfg, "train_4k"))
+    structs = (p_struct, opt_struct, input_specs(cfg, shape))
     return _sharded(step, in_sh, out_sh), structs, {"microbatches": mb}
 
 
@@ -273,7 +277,7 @@ def build_cell(cfg: ArchConfig, shape: Shape, policy: ShardingPolicy,
                **kw):
     kind = _spec(shape).kind
     if kind == "train":
-        return build_train_step(cfg, policy, **kw)
+        return build_train_step(cfg, policy, shape=shape, **kw)
     if kind == "prefill":
         return build_prefill_step(cfg, policy, shape, **kw)
     return build_serve_step(cfg, policy, shape, **kw)

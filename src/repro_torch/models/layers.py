@@ -16,6 +16,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 NEG_INF = -1e30
 
@@ -93,13 +94,59 @@ def sinusoidal_positions(seq: int, d: int, dtype=torch.float32,
 # attention cores
 # --------------------------------------------------------------------------
 
+def splittable(t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """``t``, ready to have ``dim`` split into (n, ...).  DTensor cannot
+    split a dim that lies over a number of ranks that does not divide
+    ``n`` (XLA splits it across the new dims): a DTensor split so is
+    first gathered on that dim, on the mesh dims that split it."""
+    if isinstance(t, DTensor):
+        ranks = math.prod(t.device_mesh.size(i)
+                          for i, p in enumerate(t.placements)
+                          if p.is_shard(dim))
+        if n % ranks:
+            t = t.redistribute(t.device_mesh, [
+                Replicate() if p.is_shard(dim) else p
+                for p in t.placements])
+    return t
+
+
+def evenly_split(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a DTensor that DTensor's sharding propagation split
+    unevenly (a dim over a number of ranks that does not divide it)
+    gathered on that dim: DTensor cannot flatten such a dim into a
+    matmul's rows."""
+    if isinstance(t, DTensor) and any(
+            p.is_shard() and t.shape[p.dim] % t.device_mesh.size(i)
+            for i, p in enumerate(t.placements)):
+        t = t.redistribute(t.device_mesh, [
+            Replicate() if p.is_shard()
+            and t.shape[p.dim] % t.device_mesh.size(i) else p
+            for i, p in enumerate(t.placements)])
+    return t
+
+
+def split_back(t: torch.Tensor, n: int) -> torch.Tensor:
+    """``t``, a merge of a dim of ``n`` with others, whose backward must
+    split the gradient again: DTensor cannot when the gradient arrives
+    split over ranks that do not divide ``n``.  Under autograd, a DTensor
+    whose mesh has such an axis comes out pinned, so that its gradient
+    is first brought back to ``t``'s placements (``from_local``'s
+    backward redistributes it)."""
+    if (isinstance(t, DTensor) and t.requires_grad
+            and any(n % size for size in t.device_mesh.shape)):
+        t = DTensor.from_local(t.to_local(), t.device_mesh, t.placements,
+                               shape=t.shape, stride=t.stride(),
+                               run_check=False)
+    return t
+
+
 def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
     """(B, S, Hkv, D) -> (B, S, Hkv*groups, D) for GQA."""
     if groups == 1:
         return k
     b, s, h, d = k.shape
-    return k[:, :, :, None, :].expand(b, s, h, groups, d).reshape(
-        b, s, h * groups, d)
+    return split_back(k[:, :, :, None, :].expand(b, s, h, groups, d)
+                      .reshape(b, s, h * groups, d), h)
 
 
 def no_shard(x, kind):
@@ -123,7 +170,7 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = h // hkv
-    q5 = q.reshape(b, sq, hkv, g, d)
+    q5 = splittable(q, 2, hkv).reshape(b, sq, hkv, g, d)
     scores = torch.einsum("bqkgd,bskd->bkgqs", q5, k) / math.sqrt(d)
     scores = sh(scores.float(), "attn_scores")
     q_pos = torch.arange(sq, device=q.device) + q_offset
@@ -198,7 +245,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     b, _, h, d = q.shape
     skv, hkv = k_cache.shape[1], k_cache.shape[2]
     g = h // hkv
-    q5 = q.reshape(b, hkv, g, d)
+    q5 = splittable(q, 2, hkv).reshape(b, hkv, g, d)
     s = torch.einsum("bkgd,bskd->bkgs", q5, k_cache).float()
     s = sh(s / math.sqrt(d), "dec_scores")                    # (B,Hkv,G,Skv)
     k_pos = torch.arange(skv, device=q.device)[None, :]

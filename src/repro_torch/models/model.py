@@ -36,7 +36,8 @@ from torch.utils.checkpoint import checkpoint
 from . import kvcache, moe
 from .layers import (apply_norm, apply_rope, chunked_attention,
                      decode_attention, dense_attention, dense_init, gelu_mlp,
-                     no_shard, rmsnorm, sinusoidal_positions, swiglu)
+                     no_shard, rmsnorm, sinusoidal_positions, split_back,
+                     splittable, swiglu)
 from .ssm import (SSMSpec, SSMState, init_ssm, spec_for, ssd_chunked,
                   ssd_decode_step)
 
@@ -281,17 +282,27 @@ def _layer_call(fn, remat: bool):
 # attention sub-block (full sequence)
 # --------------------------------------------------------------------------
 
+def split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(..., n * hd) -> (..., n, hd)."""
+    t = splittable(t, t.ndim - 1, n)
+    return t.reshape(*t.shape[:-1], n, hd)
+
+
+def merge_heads(o: torch.Tensor) -> torch.Tensor:
+    """(..., n, hd) -> (..., n * hd)."""
+    return split_back(o.reshape(*o.shape[:-2], -1), o.shape[-2])
+
+
 def _qkv(cfg: ArchConfig, ap: dict, x: torch.Tensor):
-    b, s, _ = x.shape
     hd = cfg.hd
     q = x @ ap["wq"]
     k = x @ ap["wk"]
     v = x @ ap["wv"]
     if cfg.qkv_bias:
         q, k, v = q + ap["bq"], k + ap["bk"], v + ap["bv"]
-    q = q.reshape(b, s, cfg.n_heads, hd)
-    k = k.reshape(b, s, cfg.n_kv_heads, hd)
-    v = v.reshape(b, s, cfg.n_kv_heads, hd)
+    q = split_heads(q, cfg.n_heads, hd)
+    k = split_heads(k, cfg.n_kv_heads, hd)
+    v = split_heads(v, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = rmsnorm(q, ap["q_norm"])
         k = rmsnorm(k, ap["k_norm"])
@@ -318,8 +329,7 @@ def _attn_block(cfg: ArchConfig, ap: dict, x: torch.Tensor,
         k = apply_rope(k, positions, cfg.rope_fraction, cfg.rope_theta)
     o = _attend(q, k, v, causal=causal, attn_impl=attn_impl,
                 window=cfg.window, shard_fn=shard_fn)
-    b, s = x.shape[:2]
-    out = o.reshape(b, s, -1) @ ap["wo"]
+    out = merge_heads(o) @ ap["wo"]
     return out, k, v
 
 
@@ -509,13 +519,12 @@ def _encoder(cfg: ArchConfig, params: dict, enc_inputs: torch.Tensor,
 
 def _cross_kv(cfg: ArchConfig, xp: dict, enc_out: torch.Tensor):
     """The cross-attention's keys / values from the encoder states."""
-    b, n_frames = enc_out.shape[:2]
     kx = enc_out @ xp["wk"]
     vx = enc_out @ xp["wv"]
     if cfg.qkv_bias:
         kx, vx = kx + xp["bk"], vx + xp["bv"]
-    return (kx.reshape(b, n_frames, cfg.n_kv_heads, cfg.hd),
-            vx.reshape(b, n_frames, cfg.n_kv_heads, cfg.hd))
+    return (split_heads(kx, cfg.n_kv_heads, cfg.hd),
+            split_heads(vx, cfg.n_kv_heads, cfg.hd))
 
 
 def _decoder_encdec(cfg: ArchConfig, params: dict, x: torch.Tensor,
@@ -537,7 +546,7 @@ def _decoder_encdec(cfg: ArchConfig, params: dict, x: torch.Tensor,
         qx, _, _ = _qkv(dec_cfg, lp["xattn"], hx)
         kx_e, vx_e = _cross_kv(cfg, lp["xattn"], enc_out)
         xo = _attend(qx, kx_e, vx_e, causal=False, attn_impl=attn_impl)
-        x = sh(x + xo.reshape(b, s, -1) @ lp["xattn"]["wo"], "act")
+        x = sh(x + merge_heads(xo) @ lp["xattn"]["wo"], "act")
         h2 = apply_norm(x, lp["ln2"], cfg.norm)
         return sh(x + _mlp(cfg, lp, h2), "act"), k, v, kx_e, vx_e
 

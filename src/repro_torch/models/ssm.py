@@ -24,7 +24,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .layers import dense_init, rmsnorm
+from .layers import dense_init, evenly_split, rmsnorm, split_back
 
 # parameter leaves kept in fp32 whatever the model dtype
 FP32_LEAVES = ("A_log", "D", "dt_bias")
@@ -186,7 +186,7 @@ def ssd_chunked(params: dict, spec: SSMSpec, u: torch.Tensor,
 
     y = (y_intra + y_inter).reshape(B_, nC * Q, H, P)[:, :S]
     y = y + x[:, :S].to(f32) * params["D"][None, None, :, None]
-    y = y.reshape(B_, S, spec.d_inner).to(u.dtype)
+    y = split_back(y.reshape(B_, S, spec.d_inner), H).to(u.dtype)
     y = rmsnorm(y * F.silu(z), params["norm_scale"])
     out = y @ params["w_out"].to(u.dtype)
     return out, SSMState(ssm=s, conv=conv_state)
@@ -210,7 +210,7 @@ def ssd_decode_step(params: dict, spec: SSMSpec, u: torch.Tensor,
     xdt = x.to(f32) * dt[..., None]                         # (B,H,P)
     new_state = (state.ssm * decay[..., None, None]
                  + torch.einsum("bhp,bn->bhpn", xdt, Bm))
-    y = torch.einsum("bhpn,bn->bhp", new_state, Cm)
+    y = torch.einsum("bhpn,bn->bhp", evenly_split(new_state), Cm)
     y = y + x.to(f32) * params["D"][None, :, None]
     y = y.reshape(B_, 1, spec.d_inner).to(u.dtype)
     y = rmsnorm(y * F.silu(z), params["norm_scale"])

@@ -20,6 +20,7 @@ microbatch's gradients.  Both are None (the identity) on one device;
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import torch
@@ -74,6 +75,31 @@ def value_and_grad(loss_fn: Callable):
     return fn
 
 
+def microbatch_loop(n: int):
+    """The microbatch indices ``train_step`` runs, in order.  The cost
+    model traces the first two, the second weighted by ``n - 1``
+    (``launch.hlo_cost.one_microbatch``)."""
+    return range(n)
+
+
+def split_microbatches(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x`` (B, ...) as (n, B / n, ...).  Microbatch i is rows
+    [i B / n, (i + 1) B / n), as in the reference, unless ``x`` is a
+    DTensor whose leading dim is split over dp ranks and dp does not
+    divide n: DTensor cannot reshape that, so there microbatch i is each
+    rank's i-th block of its own rows.  No row moves, and the gradient
+    is the same sum in another order."""
+    dp = 1
+    if isinstance(x, DTensor):
+        dp = math.prod(x.device_mesh.size(i)
+                       for i, p in enumerate(x.placements) if p.is_shard(0))
+    if n % dp == 0:
+        return x.reshape(n, -1, *x.shape[1:])
+    b = x.shape[0] // (dp * n)
+    return (x.reshape(dp, n, b, *x.shape[1:]).transpose(0, 1)
+            .reshape(n, dp * b, *x.shape[1:]))
+
+
 def make_train_step(cfg: ArchConfig, *, attn_impl: str = "dense",
                     shard_fn: Optional[Callable] = None, remat: bool = True,
                     lr: float = 3e-4, grad_clip: float = 1.0,
@@ -103,14 +129,14 @@ def make_train_step(cfg: ArchConfig, *, attn_impl: str = "dense",
         if microbatches <= 1:
             loss, grads = grad_fn(params, tokens, labels, enc)
         else:
-            mb_tok = tokens.reshape(microbatches, -1, tokens.shape[-1])
-            mb_lab = labels.reshape(microbatches, -1, labels.shape[-1])
-            mb_enc = (enc.reshape(microbatches, -1, *enc.shape[1:])
+            mb_tok = split_microbatches(tokens, microbatches)
+            mb_lab = split_microbatches(labels, microbatches)
+            mb_enc = (split_microbatches(enc, microbatches)
                       if enc is not None else None)
             loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
             grads = tree_map(lambda p: torch.zeros_like(
                 p, dtype=torch.float32), params)
-            for i in range(microbatches):
+            for i in microbatch_loop(microbatches):
                 l_i, g_i = grad_fn(params, mb_tok[i], mb_lab[i],
                                    None if mb_enc is None else mb_enc[i])
                 grads = tree_map(torch.add, grads, g_i)

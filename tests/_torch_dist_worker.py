@@ -11,7 +11,9 @@ Jobs:
           local shard of every leaf the specs shard; a one-process
           checkpoint restored with ``shardings=`` into the same step.  On
           (2, 2) the dense train step also runs with ``grad_rs`` and 2
-          microbatches of the same shape (a batch of 2 x BATCH)
+          microbatches of the same shape (a batch of 2 x BATCH); on
+          (1, 4) only the SMOKE GQA config runs (2 kv heads over 4
+          ranks)
   debug   ``make_debug_mesh((4, 2))`` on a world of 8
   fake    ``make_production_mesh`` on a ``fake`` process group of 256 and
           of 512 ranks in this one process
@@ -43,6 +45,11 @@ from repro_torch.training import (CheckpointManager, init_adamw,  # noqa: E402
 from repro_torch.training.tree import leaves  # noqa: E402
 
 ARCHS = ("qwen1_5_0_5b", "olmoe_1b_7b")
+# a model axis wider than the kv heads: the SMOKE GQA config (4 heads, 2
+# kv heads) on 4 ranks gathers k / v and q's head groups before it splits
+# them, and pins the GQA repeat's gradient (models.layers ``splittable``,
+# ``split_back``)
+WIDE_ARCHS = ("qwen2_7b",)
 BATCH, SEQ = 4, 16                   # train and prefill
 PROMPT, CACHE, DECODE = 8, 32, 8     # serve: prompt, cache capacity, tokens
 
@@ -199,6 +206,9 @@ def run_steps(mesh, arch: str, out_dir: Path, variant: dict,
 
 def job_steps(out_dir: Path, shape: tuple) -> dict:
     mesh = make_debug_mesh(shape, ("data", "model"), device_type="cpu")
+    if shape == (1, 4):
+        return {arch: run_steps(mesh, arch, out_dir, {"microbatches": 1})
+                for arch in WIDE_ARCHS}
     out = {arch: run_steps(mesh, arch, out_dir, {}) for arch in ARCHS}
     if shape == (2, 2):
         out[f"{ARCHS[0]}+mb2+grad_rs"] = run_steps(

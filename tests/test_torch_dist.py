@@ -5,9 +5,10 @@ port functions.
 Every world runs once, in the module fixture: each is a set of
 ``tests/_torch_dist_worker.py`` processes meeting through a ``FileStore``
 under ``tmp_path`` (no port), with a time limit of its own; the tests
-assert on what each rank wrote.  The three step worlds, meshes (1, 2),
-(2, 1) and (2, 2) on 2, 2 and 4 ranks, run side by side, then the world
-of 8; ``make_production_mesh`` runs on ``fake`` process groups of 256 and
+assert on what each rank wrote.  The four step worlds, meshes (1, 2),
+(2, 1), (2, 2) and (1, 4) on 2, 2, 4 and 4 ranks (the last with the SMOKE
+GQA config alone: 2 kv heads over 4 ranks), run side by side, then the
+world of 8; ``make_production_mesh`` runs on ``fake`` process groups of 256 and
 512 ranks in one process.
 
 Tolerances, fp32 throughout:
@@ -31,8 +32,10 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 WORKER = ROOT / "tests" / "_torch_dist_worker.py"
-STEP_WORLDS = {"1x2": 2, "2x1": 2, "2x2": 4}
+STEP_WORLDS = {"1x2": 2, "2x1": 2, "2x2": 4, "1x4": 4}
 ARCHS = ("qwen1_5_0_5b", "olmoe_1b_7b")
+# the model axis wider than the kv heads (2 of them over 4 ranks)
+WORLD_ARCHS = {"1x4": ("qwen2_7b",)}
 LIMIT_S = 240                   # each world's own time limit
 LOGITS_ATOL = 2e-5
 LOSS_RTOL = 1e-5
@@ -92,7 +95,7 @@ def ranks(worlds, mesh: str, key: str):
     return [r[key] for r in worlds[f"steps-{mesh}"]]
 
 
-CELLS = [(m, a) for m in STEP_WORLDS for a in ARCHS] \
+CELLS = [(m, a) for m in STEP_WORLDS for a in WORLD_ARCHS.get(m, ARCHS)] \
     + [("2x2", "qwen1_5_0_5b+mb2+grad_rs")]
 IDS = [f"{m}-{a}" for m, a in CELLS]
 

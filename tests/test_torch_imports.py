@@ -31,6 +31,7 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "import repro_torch.examples.train_resume\n"
         "import repro_torch.distributed, repro_torch.launch.mesh\n"
         "import repro_torch.launch.steps\n"
+        "import repro_torch.launch.hlo_cost, repro_torch.launch.dryrun\n"
         "import runpy\n"
         "runpy.run_path('tools/torch_perf_smoke.py', run_name='probe')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
@@ -38,6 +39,24 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "             or m.startswith('repro.'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, cwd=ROOT)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_importing_the_dry_run_sets_no_environment_and_no_group():
+    """The reference's dry run sets ``XLA_FLAGS`` at import; the port's
+    changes nothing until a cell runs."""
+    code = (
+        "import os, sys\n"
+        "before = dict(os.environ)\n"
+        "import torch.distributed as dist\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.hlo_cost\n"
+        "changed = sorted(k for k in set(before) | set(os.environ)\n"
+        "                 if before.get(k) != os.environ.get(k))\n"
+        "print(changed, dist.is_initialized())\n"
+        "sys.exit(1 if changed or dist.is_initialized() else 0)\n")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env=env, cwd=ROOT)
