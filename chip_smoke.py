@@ -233,6 +233,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -2772,8 +2773,114 @@ def mesh_phase(card: str, dev="cuda") -> None:
         fail(f"mesh: a serving kernel launched on the sharded steps: "
              f"{counts}")
     print(f"  [{card}] mesh: process group destroyed; no CUDA kernel of "
-          f"the port launched ({sum(counts.values())} launches); phase "
-          f"{time.monotonic() - t_phase:.1f} s", flush=True)
+          f"the port launched ({sum(counts.values())} launches)",
+          flush=True)
+    mesh_worlds_part(card)
+    print(f"  [{card}] mesh: phase {time.monotonic() - t_phase:.1f} s",
+          flush=True)
+
+
+# --------------------------------------------------------------------------
+# mesh, more ranks: the sharded steps on multi-rank meshes, on the CPU
+# --------------------------------------------------------------------------
+
+# The card's gloo cannot carry DTensor's all-gather of CUDA tensors (the
+# functional all-gather, ``_c10d_functional.all_gather_into_tensor``,
+# kills the process with a segmentation fault under torch 2.11; all-reduce,
+# reduce-scatter and all-to-all pass), and NCCL refuses two ranks on one
+# device: no multi-rank mesh runs on the one card.  What the multi-rank
+# path needs from this machine is its torch, so the (1, 2) and (1, 4)
+# gloo worlds of ``tests/_torch_dist_worker.py`` run here as CPU
+# processes, side by side:
+# SMOKE dense and MoE on (1, 2); SMOKE GQA (2 kv heads on 4 ranks), the
+# same with 6 heads (the query rows split) and the SMOKE hybrid on (1, 4)
+MESH_WORLDS = {"steps-1x2": 2, "steps-1x4": 4}
+MESH_WORLDS_LIMIT_S = 300
+# tests/test_torch_dist.py's tolerances
+WORLD_TOL = {"logits_abs": 2e-5, "cache_abs": 2e-5, "loss_rel": 1e-5,
+             "grad_norm_rel": 1e-5, "grad_rel": 1e-4, "nu_rel": 1e-4,
+             "param_abs": 1e-4}
+
+
+def world_errors(res: dict) -> dict:
+    """One rank's worst error per gate over its cases, and its faults:
+    a shard fault, a ``_StridedShard`` DTensor, a greedy token that
+    differs, a restore that is not the same step."""
+    worst = dict.fromkeys(WORLD_TOL, 0.0)
+    faults = []
+    for case, r in res.items():
+        t = r["train"]
+        for key, (got, want) in (("loss_rel", t["loss"]),
+                                 ("grad_norm_rel", t["grad_norm"])):
+            worst[key] = max(worst[key], abs(got - want) / abs(want))
+        for key in ("grad_rel", "nu_rel", "param_abs"):
+            worst[key] = max(worst[key], t[key])
+        for part in ("prefill", "serve"):
+            for key in ("logits_abs", "cache_abs"):
+                worst[key] = max(worst[key], r[part][key])
+        if r["serve"]["tokens"][0] != r["serve"]["tokens"][1]:
+            faults.append(f"{case}: greedy tokens differ")
+        if r["restore"]["param_abs"] != 0.0:
+            faults.append(f"{case}: the restored step differs")
+        for step, sr in r.items():
+            faults += [f"{case} {step}: {f}" for f in sr["shard_faults"]]
+            faults += [f"{case} {step}: strided {f}" for f in sr["strided"]]
+    return {"worst": worst, "faults": faults}
+
+
+def mesh_worlds_part(card: str) -> None:
+    """The multi-rank worlds (``MESH_WORLDS``) as CPU processes under this
+    machine's torch, meeting through ``FileStore``s in a fresh temporary
+    directory, within ``MESH_WORLDS_LIMIT_S``; every rank of every case
+    within ``WORLD_TOL`` of one process, with no fault."""
+    import tempfile
+
+    print(f"  [{card}] mesh, more ranks: on the CPU, not the card "
+          f"(gloo cannot all-gather CUDA tensors for DTensor here): "
+          f"{', '.join(MESH_WORLDS)} of tests/_torch_dist_worker.py, torch "
+          f"{torch.__version__}", flush=True)
+    t0 = time.monotonic()
+    tmp = Path(tempfile.mkdtemp(prefix="mesh_worlds_"))
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "CUDA_VISIBLE_DEVICES": ""}
+    procs = {}
+    for job, size in MESH_WORLDS.items():
+        (tmp / job).mkdir()
+        procs[job] = [subprocess.Popen(
+            [sys.executable, str(ROOT / "tests" / "_torch_dist_worker.py"),
+             job, str(r), str(size), str(tmp / job / "store"),
+             str(tmp / job)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+            for r in range(size)]
+    for job, ranks in procs.items():
+        for r, p in enumerate(ranks):
+            left = MESH_WORLDS_LIMIT_S - (time.monotonic() - t0)
+            try:
+                log, _ = p.communicate(timeout=max(1.0, left))
+            except subprocess.TimeoutExpired:
+                for q in (q for qs in procs.values() for q in qs):
+                    q.kill()
+                    q.communicate()
+                fail(f"mesh {job}: passed the {MESH_WORLDS_LIMIT_S} s limit")
+            if p.returncode != 0:
+                fail(f"mesh {job} rank {r} exited {p.returncode}:\n"
+                     f"{log.decode(errors='replace')[-4000:]}")
+        wall = time.monotonic() - t0
+        errs = [world_errors(json.loads(
+            (tmp / job / f"rank{r}.json").read_text()))
+            for r in range(len(ranks))]
+        worst = {k: max(e["worst"][k] for e in errs) for k in WORLD_TOL}
+        faults = [f for e in errs for f in e["faults"]]
+        cases = json.loads((tmp / job / "rank0.json").read_text())
+        print(f"  [{card}] mesh {job} ({len(ranks)} CPU ranks; "
+              f"{', '.join(cases)}): worst "
+              + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+              + f"; faults {len(faults)}; done {wall:.1f} s after the start",
+              flush=True)
+        if faults:
+            fail(f"mesh {job}: {faults[:5]}")
+        bad = {k: v for k, v in worst.items() if not v <= WORLD_TOL[k]}
+        if bad:
+            fail(f"mesh {job}: beyond {WORLD_TOL}: {bad}")
 
 
 # --------------------------------------------------------------------------
@@ -2934,8 +3041,26 @@ def dryrun_phase(card: str, dev="cuda") -> None:
         fail(f"dryrun: a serving kernel launched on the sharded steps: "
              f"{counts}")
     print(f"  [{card}] dryrun: process group destroyed; no CUDA kernel of "
-          f"the port launched; phase {time.monotonic() - t_phase:.1f} s",
-          flush=True)
+          f"the port launched", flush=True)
+
+    # the dry run's multi-rank path: one production cell on a fake group
+    # of 256 ranks, priced, nothing run
+    rec = dryrun.run_cell(MESH_ARCH, "decode_32k", False,
+                          str(ROOT / "build" / "dryrun"), verbose=False)
+    if not rec["ok"]:
+        fail(f"dryrun {MESH_ARCH} decode_32k on (16, 16): {rec['error']}")
+    mem, roof = rec["memory"], rec["roofline"]
+    print(f"  [{card}] dryrun {MESH_ARCH} decode_32k on the (16, 16) mesh "
+          f"({rec['chips']} fake ranks, torch {torch.__version__}): "
+          f"{mem['per_device_total'] / 2**30:.3f} GiB a rank (fits 80 GB "
+          f"{mem['fits_80GB']}), flops {rec['flops_per_device']}, bytes "
+          f"{rec['bytes_per_device']}, collective bytes "
+          f"{rec['collectives']['total']}; compute "
+          f"{roof['compute_s'] * 1e3:.3f} ms, memory "
+          f"{roof['memory_s'] * 1e3:.3f} ms, collective "
+          f"{roof['collective_s'] * 1e3:.3f} ms -> {roof['dominant']}-bound "
+          f"(a prediction); traced in {rec['trace_s']} s; phase "
+          f"{time.monotonic() - t_phase:.1f} s", flush=True)
 
 
 COPY_KERNELS = ("quantize_kernel", "dequantize_kernel", "gather_kernel")

@@ -328,10 +328,12 @@ class NamedSharding:
         """``x`` as a DTensor with these placements: a DTensor is
         redistributed; a plain tensor (the same global value on every
         rank) is split with ``distribute_tensor``, each rank keeping its
-        shard alone."""
+        shard alone, with no collective (``src_data_rank=None``: nothing
+        is sent from a source rank)."""
         if isinstance(x, DTensor):
             return x.redistribute(self.mesh, self.placements)
-        return distribute_tensor(x, self.mesh, self.placements)
+        return distribute_tensor(x, self.mesh, self.placements,
+                                 src_data_rank=None)
 
 
 def map_specs(fn: Callable, tree):

@@ -7,9 +7,7 @@ check that it fits one card's 80 GB, and extract the roofline terms
 
 No card is needed, as the reference needs no TPU: the meshes live on
 ``fake`` process groups of 256 or 512 ranks in this one process, the
-inputs are ``meta`` tensors, and nothing runs on any device.  A mesh
-with more than one rank on an axis needs torch 2.13's DTensor (ROADMAP
-Queue 3 item 11); on an older torch such a cell fails with that reason.
+inputs are ``meta`` tensors, and nothing runs on any device.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen1_5_0_5b --shape decode_32k
@@ -29,12 +27,11 @@ import time
 import traceback
 from typing import Optional
 
-import torch
 import torch.distributed as dist
 
 from . import hlo_cost
 from ..configs import ARCH_IDS, get
-from ..distributed.sharding import ShardingPolicy, mesh_axes
+from ..distributed.sharding import ShardingPolicy
 from ..models.model import ArchConfig
 from ..sim.executor import H100_SXM
 from .mesh import make_production_mesh
@@ -67,18 +64,6 @@ def fake_world(size: int):
         yield
     finally:
         dist.destroy_process_group()
-
-
-def check_torch(mesh) -> None:
-    """More than one rank on a mesh axis needs torch >= 2.13's DTensor."""
-    version = tuple(int(x) for x in
-                    torch.__version__.split("+")[0].split(".")[:2])
-    if version < (2, 13) and any(n > 1 for n in mesh_axes(mesh).values()):
-        raise RuntimeError(
-            f"torch {torch.__version__}'s DTensor cannot flatten a "
-            "sequence-sharded activation on a mesh of more than one rank "
-            f"an axis ({mesh_axes(mesh)}); it needs torch >= 2.13 (ROADMAP "
-            "Queue 3 item 11)")
 
 
 def _tokens(shape: Shape) -> int:
@@ -168,7 +153,6 @@ def run_cell(arch: str, shape: Shape, multi_pod: bool, out_dir: str,
                                                  device_type="cpu")
             else:
                 cell_mesh = mesh
-            check_torch(cell_mesh)
             graph, meta, t_trace = trace_cell(cfg, shape, cell_mesh,
                                               variant)
             chips = cell_mesh.size()

@@ -11,7 +11,9 @@ them.
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from .layers import placed, shard_index
 
 
 def init_attn_cache(n_layers: int, batch: int, max_seq: int,
@@ -33,16 +35,26 @@ def _insert(k_cache, v_cache, k_new, v_new, slots):
 
 
 def _insert_masked(k_cache, v_cache, k_new, v_new, slots):
-    """One new position per row into DTensor caches.  DTensor refuses an
-    in-place scatter into a sharded dim, so the position is written by a
-    mask (exact: a select), each rank over its own batch and sequence
-    shard, and copied back into the caches in place."""
+    """One new position per row into DTensor caches, written by each rank
+    into its own (batch, position) shard of the caches' local tensors:
+    the position is selected by a mask (exact: a select) and copied back
+    in place.  DTensor refuses an in-place scatter into a sharded dim,
+    and left to itself torch 2.11's DTensor moves the whole cache to
+    another split and back (two all-to-alls a layer) for the masked
+    write."""
     if k_new.shape[1] != 1:
         raise ValueError("a DTensor cache takes one new position per row")
-    pos = torch.arange(k_cache.shape[1], device=k_cache.device)
-    hit = (pos[None, :] == slots)[..., None, None]          # (B, Smax, 1, 1)
-    k_cache.copy_(torch.where(hit, k_new.to(k_cache.dtype), k_cache))
-    v_cache.copy_(torch.where(hit, v_new.to(v_cache.dtype), v_cache))
+    mesh = k_cache.device_mesh
+    seq = [i for i, p in enumerate(k_cache.placements) if p.is_shard(1)]
+    rows = tuple(Shard(0) if p.is_shard(0) else Replicate()
+                 for p in k_cache.placements)
+    slots = placed(slots, mesh, rows).to_local()
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        local, new = cache.to_local(), placed(new, mesh, rows).to_local()
+        pos = torch.arange(local.shape[1], device=local.device) \
+            + shard_index(mesh, seq) * local.shape[1]
+        hit = (pos[None, :] == slots)[..., None, None]      # (B, S, 1, 1)
+        local.copy_(torch.where(hit, new.to(local.dtype), local))
     return k_cache, v_cache
 
 

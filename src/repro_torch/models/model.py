@@ -30,14 +30,13 @@ import math
 from typing import Optional
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import checkpoint
 
 from . import kvcache, moe
-from .layers import (apply_norm, apply_rope, chunked_attention,
+from .layers import (apply_norm, apply_rope, batch_only, chunked_attention,
                      decode_attention, dense_attention, dense_init, gelu_mlp,
-                     no_shard, rmsnorm, sinusoidal_positions, split_back,
-                     splittable, swiglu)
+                     no_shard, on_batch_shards, pinned, rmsnorm,
+                     sinusoidal_positions, split_back, splittable, swiglu)
 from .ssm import (SSMSpec, SSMState, init_ssm, spec_for, ssd_chunked,
                   ssd_decode_step)
 
@@ -295,6 +294,7 @@ def merge_heads(o: torch.Tensor) -> torch.Tensor:
 
 def _qkv(cfg: ArchConfig, ap: dict, x: torch.Tensor):
     hd = cfg.hd
+    x = batch_only(x)
     q = x @ ap["wq"]
     k = x @ ap["wk"]
     v = x @ ap["wv"]
@@ -329,7 +329,7 @@ def _attn_block(cfg: ArchConfig, ap: dict, x: torch.Tensor,
         k = apply_rope(k, positions, cfg.rope_fraction, cfg.rope_theta)
     o = _attend(q, k, v, causal=causal, attn_impl=attn_impl,
                 window=cfg.window, shard_fn=shard_fn)
-    out = merge_heads(o) @ ap["wo"]
+    out = pinned(merge_heads(o) @ ap["wo"])
     return out, k, v
 
 
@@ -351,14 +351,14 @@ def _ffn(cfg: ArchConfig, lp: dict, h: torch.Tensor,
 
 
 def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """``table[tokens]``.  A DTensor table is first gathered whole onto
-    every rank (an all-gather for the lookup alone; the leaf stays
-    sharded): DTensor's own lookup over a vocab-sharded table yields a
-    MaskPartial whose redistribution fails in the backward."""
-    if isinstance(table, DTensor):
-        table = table.redistribute(
-            table.device_mesh, [Replicate()] * table.device_mesh.ndim)
-    return table[tokens]
+    """``table[tokens]``.  DTensor tokens are looked up by each rank in its
+    own rows (``on_batch_shards``), in the table gathered whole onto every
+    rank (an all-gather for the lookup alone; the leaf stays sharded):
+    DTensor's own lookup over a vocab-sharded table yields a MaskPartial
+    whose redistribution fails in the backward, and torch 2.11's DTensor
+    has no rule for the lookup's backward over split rows."""
+    return on_batch_shards(lambda p, t: p["table"][t], 1, {"table": table},
+                           tokens)
 
 
 def _hybrid_mix(lp: dict, a_out: torch.Tensor, s_out: torch.Tensor):
@@ -432,7 +432,7 @@ def forward_train(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     x = apply_norm(x, params["ln_f"], cfg.norm)
     if last_only:
         x = x[:, -1:]
-    logits = sh(x @ params["lm_head"].T, "logits")
+    logits = sh(batch_only(x) @ params["lm_head"].T, "logits")
     if not collect_cache:
         return logits
     stacked = {key: torch.stack(vals) for key, vals in extras.items()
@@ -459,6 +459,24 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
                          shard_fn=shard_fn)
 
 
+def _zero_tail(t: torch.Tensor, n: int) -> torch.Tensor:
+    """(L, B, s, ...) -> (L, B, s + n, ...), the new positions zero: a
+    copy, by ``torch.cat`` (torch 2.11's DTensor cannot plan ``pad`` on a
+    mesh of two dims)."""
+    zeros = torch.zeros(t.shape[:2] + (n,) + t.shape[3:], dtype=t.dtype,
+                        device=t.device)
+    return torch.cat([t, zeros], dim=2)
+
+
+def _ring(t: torch.Tensor, s: int, w: int) -> torch.Tensor:
+    """(L, B, s, ...) positions -> the (L, B, w, ...) ring of the last
+    ``w``: position p in slot p % w, empty slots zero; a copy."""
+    if s < w:
+        return _zero_tail(t, w - s)
+    tail, r = t[:, :, s - w:], s % w
+    return torch.cat([tail[:, :, w - r:], tail[:, :, :w - r]], dim=2)
+
+
 def _build_cache(cfg: ArchConfig, extras: dict, b: int, s: int,
                  max_seq: int) -> dict:
     dev = next(iter(extras.values())).device
@@ -466,21 +484,15 @@ def _build_cache(cfg: ArchConfig, extras: dict, b: int, s: int,
     if "k" in extras:
         k, v = extras["k"], extras["v"]              # (L,B,S,Hkv,hd)
         if cfg.window > 0:
-            w = cfg.window
-            kc = k.new_zeros((k.shape[0], b, w, cfg.n_kv_heads, cfg.hd))
-            vc = torch.zeros_like(kc)
-            # write the trailing `window` positions into ring slots
-            pos = torch.arange(max(s - w, 0), s, device=dev)
-            slot = pos % w
-            kc[:, :, slot] = k[:, :, pos]
-            vc[:, :, slot] = v[:, :, pos]
-            cache["k"], cache["v"] = kc, vc
+            # the trailing `window` positions in their ring slots (slot =
+            # pos % window), placed by slicing out of place: DTensor
+            # refuses an indexed write into a sequence-sharded cache
+            cache["k"], cache["v"] = (_ring(t, s, cfg.window) for t in (k, v))
         else:
             pad = max_seq - s
             if pad < 0:
                 raise ValueError(f"max_seq {max_seq} < prompt length {s}")
-            cache["k"] = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
-            cache["v"] = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+            cache["k"], cache["v"] = _zero_tail(k, pad), _zero_tail(v, pad)
     if "ssm" in extras:
         cache["ssm"], cache["conv"] = extras["ssm"], extras["conv"]
     return cache
@@ -519,6 +531,7 @@ def _encoder(cfg: ArchConfig, params: dict, enc_inputs: torch.Tensor,
 
 def _cross_kv(cfg: ArchConfig, xp: dict, enc_out: torch.Tensor):
     """The cross-attention's keys / values from the encoder states."""
+    enc_out = batch_only(enc_out)
     kx = enc_out @ xp["wk"]
     vx = enc_out @ xp["wv"]
     if cfg.qkv_bias:
@@ -546,7 +559,7 @@ def _decoder_encdec(cfg: ArchConfig, params: dict, x: torch.Tensor,
         qx, _, _ = _qkv(dec_cfg, lp["xattn"], hx)
         kx_e, vx_e = _cross_kv(cfg, lp["xattn"], enc_out)
         xo = _attend(qx, kx_e, vx_e, causal=False, attn_impl=attn_impl)
-        x = sh(x + merge_heads(xo) @ lp["xattn"]["wo"], "act")
+        x = sh(x + pinned(merge_heads(xo) @ lp["xattn"]["wo"]), "act")
         h2 = apply_norm(x, lp["ln2"], cfg.norm)
         return sh(x + _mlp(cfg, lp, h2), "act"), k, v, kx_e, vx_e
 
@@ -562,7 +575,7 @@ def _decoder_encdec(cfg: ArchConfig, params: dict, x: torch.Tensor,
     x = apply_norm(x, params["ln_f"], cfg.norm)
     if last_only:
         x = x[:, -1:]
-    logits = sh(x @ params["lm_head"].T, "logits")
+    logits = sh(batch_only(x) @ params["lm_head"].T, "logits")
     cache = None
     if collect_cache:
         cache = _build_cache(cfg, {"k": torch.stack(extras["k"]),
@@ -649,7 +662,10 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict,
                 mix = _hybrid_mix(lp, a_out, ssm_step(lp, li, h))
             else:
                 mix = a_out
-        x = x + mix
+        # each residual sum is reduced once, where the reference
+        # all-reduces a row-parallel output: a Partial sum left so would
+        # be all-reduced again at every use
+        x = batch_only(x + mix)
         if is_encdec:
             hx = apply_norm(x, lp["ln_x"], cfg.norm)
             qx, _, _ = _qkv(dec_cfg, lp["xattn"], hx)
@@ -658,12 +674,13 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict,
                                  device=x.device)
             xo = decode_attention(qx, cross_k, cache["cross_v"][li], enc_len,
                                   shard_fn=sh)
-            x = x + xo.reshape(b, 1, -1) @ lp["xattn"]["wo"]
+            x = batch_only(x + xo.reshape(b, 1, -1) @ lp["xattn"]["wo"])
         if cfg.family != "ssm":
             h2 = apply_norm(x, lp["ln2"], cfg.norm)
-            x = x + _ffn(cfg, lp, h2, shard_fn)
+            x = batch_only(x + _ffn(cfg, lp, h2, shard_fn))
     x = apply_norm(x, params["ln_f"], cfg.norm)
-    logits = sh((x @ params["lm_head"].T)[:, 0], "logits_decode")
+    logits = sh((batch_only(x) @ params["lm_head"].T)[:, 0],
+                "logits_decode")
     new_cache = dict(cache)
     new_cache["len"] = lens + 1
     return logits, new_cache

@@ -27,7 +27,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .layers import no_shard
+from .layers import batch_only, no_shard, on_batch_shards, pinned
 
 
 class Routing(NamedTuple):
@@ -90,12 +90,41 @@ def moe_forward(x: torch.Tensor, p: dict, top_k: int,
     """x: (B, S, d) -> (B, S, d).  ``shard_fn(x, kind)`` places the
     (B, E, C, d) dispatch buffer (``moe_dispatch``: expert-sharded, the
     all-to-all of expert parallelism) and the experts' outputs
-    (``moe_combine``); None is the identity."""
+    (``moe_combine``); None is the identity.  With a DTensor ``x`` the
+    routing, the buffer's indexed write and the combine's indexed read
+    run on each rank's own batch rows (``on_batch_shards``; torch 2.11's
+    DTensor has no rule for an indexed write), the experts on the
+    placed buffer."""
     sh = shard_fn or no_shard
+    x = batch_only(x)
     b, s, d = x.shape
     n_exp = p["router"].shape[1]
-    r = route(x, p, top_k, capacity_factor)
-    cap = r.capacity
+    cap = capacity(top_k, s, n_exp, capacity_factor)
+    buf, *routing = on_batch_shards(
+        lambda q, x: _dispatch(x, q["router"], top_k, capacity_factor), 5,
+        {"router": p["router"]}, x)
+    buf = sh(buf, "moe_dispatch")
+
+    # expert FFN batched over the expert axis: (E, B*C, d)
+    h = buf.transpose(0, 1).reshape(n_exp, b * cap, d)
+    y_e = _swiglu_e(h, p["w_gate"].to(x.dtype), p["w_up"].to(x.dtype),
+                    p["w_down"].to(x.dtype))
+    y_e = sh(y_e.reshape(n_exp, b, cap, d).transpose(0, 1),  # (B, E, C, d)
+             "moe_combine")
+    y = on_batch_shards(lambda q, *a: _combine(*a, cap), 1, {}, y_e,
+                        *routing)
+    if "shared" in p:
+        y = y + _shared(x, p["shared"])
+    return pinned(y)
+
+
+def _dispatch(x: torch.Tensor, router: torch.Tensor, top_k: int,
+              capacity_factor: float):
+    """The (B, E, C, d) dispatch buffer of x and the routing (gates, idx,
+    pos, keep) of ``route``."""
+    b, s, d = x.shape
+    r = route(x, {"router": router}, top_k, capacity_factor)
+    n_exp, cap = router.shape[1], r.capacity
     e_flat = r.idx.reshape(b, s * top_k)
     # each kept slot owns cell e * C + pos of its row; dropped slots all go
     # to the spare cell E * C, which is cut off below
@@ -105,25 +134,23 @@ def moe_forward(x: torch.Tensor, p: dict, top_k: int,
     buf = x.new_zeros((b, n_exp * cap + 1, d))
     rows = torch.arange(b, device=x.device)[:, None].expand_as(cell)
     buf.index_put_((rows, cell), x_rep)
-    buf = sh(buf[:, :n_exp * cap].reshape(b, n_exp, cap, d), "moe_dispatch")
+    return (buf[:, :n_exp * cap].reshape(b, n_exp, cap, d), r.gates, r.idx,
+            r.pos, r.keep)
 
-    # expert FFN batched over the expert axis: (E, B*C, d)
-    h = buf.transpose(0, 1).reshape(n_exp, b * cap, d)
-    y_e = _swiglu_e(h, p["w_gate"].to(x.dtype), p["w_up"].to(x.dtype),
-                    p["w_down"].to(x.dtype))
-    y_e = sh(y_e.reshape(n_exp, b, cap, d).transpose(0, 1),  # (B, E, C, d)
-             "moe_combine")
 
-    # gather + gate combine: a dropped slot reads cell (e, C - 1) and is
-    # zeroed, as the reference's ``where(keep, ., 0)``
-    safe = torch.where(r.keep, r.pos, torch.full_like(r.pos, cap - 1))
+def _combine(y_e: torch.Tensor, gates, idx, pos, keep,
+             cap: int) -> torch.Tensor:
+    """The gate-weighted sum of each token's kept slots in the experts'
+    outputs y_e (B, E, C, d): a dropped slot reads cell (e, C - 1) and is
+    zeroed, as the reference's ``where(keep, ., 0)``."""
+    b, s, top_k = idx.shape
+    e_flat = idx.reshape(b, s * top_k)
+    rows = torch.arange(b, device=y_e.device)[:, None].expand_as(e_flat)
+    safe = torch.where(keep, pos, torch.full_like(pos, cap - 1))
     y_tok = y_e[rows, e_flat, safe]                          # (B, S*k, d)
-    y_tok = torch.where(r.keep[..., None], y_tok, y_tok.new_zeros(()))
-    y = (y_tok.reshape(b, s, top_k, d)
-         * r.gates[..., None].to(x.dtype)).sum(dim=2)
-    if "shared" in p:
-        y = y + _shared(x, p["shared"])
-    return y
+    y_tok = torch.where(keep[..., None], y_tok, y_tok.new_zeros(()))
+    return (y_tok.reshape(b, s, top_k, -1)
+            * gates[..., None].to(y_e.dtype)).sum(dim=2)
 
 
 def moe_ref(x: torch.Tensor, p: dict, top_k: int) -> torch.Tensor:

@@ -24,7 +24,10 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .layers import dense_init, evenly_split, rmsnorm, split_back
+from torch.distributed.tensor import DTensor
+
+from .layers import (batch_only, dense_init, evenly_split, on_batch_shards,
+                     rmsnorm)
 
 # parameter leaves kept in fp32 whatever the model dtype
 FP32_LEAVES = ("A_log", "D", "dt_bias")
@@ -128,7 +131,18 @@ def _gates(params: dict, dt: torch.Tensor):
 def ssd_chunked(params: dict, spec: SSMSpec, u: torch.Tensor,
                 state: SSMState | None = None,
                 ) -> tuple[torch.Tensor, SSMState]:
-    """Full-sequence SSD. u: (B, S, d_model) -> (B, S, d_model)."""
+    """Full-sequence SSD. u: (B, S, d_model) -> (B, S, d_model).  A
+    DTensor ``u`` runs on each rank's batch rows (``on_batch_shards``):
+    the SSD mixes nothing across rows, and its heads are not split."""
+    if isinstance(u, DTensor):
+        def local(params, u, ssm, conv):
+            out, st = ssd_chunked(params, spec, u, None if ssm is None
+                                  else SSMState(ssm, conv))
+            return out, st.ssm, st.conv
+
+        out, ssm, conv = on_batch_shards(local, 3, params, u,
+                                         *(state or (None, None)))
+        return out, SSMState(ssm, conv)
     B_, S, _ = u.shape
     H, P, N, Q = spec.n_heads, spec.head_dim, spec.d_state, spec.chunk
     f32 = torch.float32
@@ -186,7 +200,7 @@ def ssd_chunked(params: dict, spec: SSMSpec, u: torch.Tensor,
 
     y = (y_intra + y_inter).reshape(B_, nC * Q, H, P)[:, :S]
     y = y + x[:, :S].to(f32) * params["D"][None, None, :, None]
-    y = split_back(y.reshape(B_, S, spec.d_inner), H).to(u.dtype)
+    y = y.reshape(B_, S, spec.d_inner).to(u.dtype)
     y = rmsnorm(y * F.silu(z), params["norm_scale"])
     out = y @ params["w_out"].to(u.dtype)
     return out, SSMState(ssm=s, conv=conv_state)
@@ -195,6 +209,7 @@ def ssd_chunked(params: dict, spec: SSMSpec, u: torch.Tensor,
 def ssd_decode_step(params: dict, spec: SSMSpec, u: torch.Tensor,
                     state: SSMState) -> tuple[torch.Tensor, SSMState]:
     """One token. u: (B, 1, d_model)."""
+    u = batch_only(u)
     B_ = u.shape[0]
     H, P, N = spec.n_heads, spec.head_dim, spec.d_state
     f32 = torch.float32

@@ -24,8 +24,10 @@ import math
 from typing import Callable, Optional
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.experimental import local_map
 
+from ..models.layers import placed, shard_index
 from ..models.model import ArchConfig, forward_train
 from .optimizer import AdamWState, adamw_update, global_norm
 from .tree import leaves, tree_map, unflatten
@@ -33,20 +35,43 @@ from .tree import leaves, tree_map, unflatten
 
 def softmax_cross_entropy(logits: torch.Tensor,
                           labels: torch.Tensor) -> torch.Tensor:
-    """logits: (B, S, V); labels: (B, S) int -> per-token loss (B, S)."""
+    """logits: (B, S, V); labels: (B, S) int -> per-token loss (B, S).
+    DTensor logits stay in their vocab placement
+    (``_sharded_cross_entropy``)."""
+    if isinstance(logits, DTensor):
+        return _sharded_cross_entropy(logits, labels)
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    if isinstance(logits, DTensor):
-        # DTensor's gather over a vocab-sharded dim yields a MaskPartial
-        # that its redistribution cannot reduce; select the label's logit
-        # with a mask instead (exact: one term, the rest zeros), each rank
-        # summing its own vocab shard into a Partial sum
-        vocab = torch.arange(logits.shape[-1], device=labels.device)
-        gold = torch.where(vocab == labels.long()[..., None], logits,
-                           0.0).sum(-1)
-    else:
-        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return lse - gold
+
+
+def _sharded_cross_entropy(logits: DTensor, labels) -> DTensor:
+    """The cross-entropy of vocab-sharded logits, never gathered: each
+    rank takes its vocab shard's logsumexp and its label pick (zero when
+    the label lies in another shard) through ``local_map``, as one
+    column each of a (B, S, shards) pair, and a logsumexp and a sum over
+    those columns combine them.  The columns are split like the vocab,
+    so their gradients come back as each rank's own."""
+    mesh = logits.device_mesh
+    vocab = [i for i, p in enumerate(logits.placements) if p.is_shard(2)]
+    lp = tuple(p if p.is_shard(0) or p.is_shard(1) or i in vocab
+               else Replicate() for i, p in enumerate(logits.placements))
+    rows = tuple(Replicate() if i in vocab else p for i, p in enumerate(lp))
+
+    def local(logits, labels):
+        logits = logits.float()
+        n = logits.shape[-1]
+        idx = labels.long()[..., None] - shard_index(mesh, vocab) * n
+        inside = (idx >= 0) & (idx < n)
+        gold = torch.gather(logits, -1, idx.clamp(0, n - 1))
+        return (torch.logsumexp(logits, dim=-1, keepdim=True),
+                torch.where(inside, gold, gold.new_zeros(())))
+
+    lse, gold = local_map(local, out_placements=(list(lp), list(lp)),
+                          in_placements=(lp, rows), device_mesh=mesh)(
+        placed(logits, mesh, lp), placed(labels, mesh, rows))
+    return torch.logsumexp(lse, dim=-1) - gold.sum(-1)
 
 
 def make_loss_fn(cfg: ArchConfig, *, attn_impl: str = "dense",

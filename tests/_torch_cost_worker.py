@@ -21,6 +21,9 @@ it measured to OUT as JSON.  Jobs:
   train_cell   ``dryrun.run_cell`` on (4, 2): a train cell of 2
                microbatches
   production   one SMOKE cell on each production mesh (256 and 512 ranks)
+  loss         the cross-entropy and its gradient on SMOKE logits split
+               over (2, 4), with the element count of each all-gather's
+               result
 """
 from __future__ import annotations
 
@@ -261,6 +264,42 @@ def job_production(out_dir: str) -> dict:
     return {mesh: dryrun.run_cell("qwen1_5_0_5b", shape, mesh == "multi",
                                   out_dir, verbose=False, cfg=cfg)
             for mesh in ("single", "multi")}
+
+
+def job_loss() -> dict:
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import hlo_cost
+    from repro_torch.training.train import softmax_cross_entropy
+
+    b, s, vocab = 4, 16, get_smoke("qwen1_5_0_5b").vocab
+    with _world(8):
+        mesh = _mesh((2, 4))
+
+        def loss_and_grad(logits, labels):
+            logits = DTensor.from_local(
+                logits.requires_grad_(), mesh, [Shard(0), Shard(2)],
+                shape=(b, s, vocab), stride=(s * vocab, vocab, 1),
+                run_check=False)
+            labels = DTensor.from_local(labels, mesh,
+                                        [Shard(0), Replicate()],
+                                        shape=(b, s), stride=(s, 1),
+                                        run_check=False)
+            with implicit_replication():      # as the train step runs it
+                loss = softmax_cross_entropy(logits, labels).mean()
+                (grad,) = torch.autograd.grad(loss, logits)
+            return loss.to_local(), grad.to_local()
+
+        graph = hlo_cost.trace(
+            loss_and_grad, torch.empty(b // 2, s, vocab // 4, device="meta"),
+            torch.empty(b // 2, s, dtype=torch.int64, device="meta"))
+        gathers = [n.meta["val"].numel() for n in graph.graph.nodes
+                   if hlo_cost.node_cost(n)[2] == "all-gather"]
+    # a rank's rows of the logits, whole over the vocabulary
+    return {"gathers": gathers, "rows_x_vocab": b // 2 * s * vocab}
 
 
 def main() -> None:

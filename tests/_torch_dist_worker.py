@@ -12,8 +12,14 @@ Jobs:
           checkpoint restored with ``shardings=`` into the same step.  On
           (2, 2) the dense train step also runs with ``grad_rs`` and 2
           microbatches of the same shape (a batch of 2 x BATCH); on
-          (1, 4) only the SMOKE GQA config runs (2 kv heads over 4
-          ranks)
+          (1, 4) the SMOKE GQA config (2 kv heads over 4 ranks), the
+          same with 6 heads (q cannot split over the heads, so the
+          attention cores split the query rows) and the SMOKE hybrid (SSD
+          heads, a ring cache past its window) run.
+          Every DTensor the steps create, the intermediates of decomposed
+          ops included, is recorded; those with a ``_StridedShard``
+          placement (torch 2.13 makes one where 2.11 refuses a view) are
+          listed per step
   debug   ``make_debug_mesh((4, 2))`` on a world of 8
   fake    ``make_production_mesh`` on a ``fake`` process group of 256 and
           of 512 ranks in this one process
@@ -21,6 +27,7 @@ Imports torch and the port only.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -29,6 +36,8 @@ from pathlib import Path
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.placement_types import _StridedShard
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
@@ -49,9 +58,35 @@ ARCHS = ("qwen1_5_0_5b", "olmoe_1b_7b")
 # kv heads) on 4 ranks gathers k / v and q's head groups before it splits
 # them, and pins the GQA repeat's gradient (models.layers ``splittable``,
 # ``split_back``)
-WIDE_ARCHS = ("qwen2_7b",)
+WIDE_ARCHS = ("qwen2_7b", "qwen2_7b+h6", "hymba_1_5b")
+# SMOKE configs changed for one case: "+h6", 6 heads
+VARIANTS = {"qwen2_7b+h6": dict(n_heads=6)}
 BATCH, SEQ = 4, 16                   # train and prefill
 PROMPT, CACHE, DECODE = 8, 32, 8     # serve: prompt, cache capacity, tokens
+
+
+STRIDED: list = []                   # DTensors made with a _StridedShard
+
+
+def record_strided() -> None:
+    """Record each DTensor made from now on whose placements hold a
+    ``_StridedShard`` (``DTensor.__init__`` runs for every DTensor that
+    an op, a redistribution or ``from_local`` makes)."""
+    init = DTensor.__init__
+
+    def recording(self, *args, **kwargs):
+        if any(isinstance(p, _StridedShard) for p in self._spec.placements):
+            STRIDED.append(f"{tuple(self.shape)} {self._spec.placements}")
+        init(self, *args, **kwargs)
+
+    DTensor.__init__ = recording
+
+
+def strided() -> list:
+    """The ``_StridedShard`` DTensors recorded since the last call."""
+    out = list(STRIDED)
+    STRIDED.clear()
+    return out
 
 
 def full(x) -> torch.Tensor:
@@ -100,7 +135,8 @@ def batch_of(cfg, seed: int, b: int, s: int) -> dict:
 
 def run_steps(mesh, arch: str, out_dir: Path, variant: dict,
               train_only: bool = False, batch: int = BATCH) -> dict:
-    cfg = get_smoke(arch)
+    cfg = dataclasses.replace(get_smoke(arch.split("+")[0]),
+                              **VARIANTS.get(arch, {}))
     params = init_params(cfg, torch.Generator().manual_seed(0),
                          device="cpu")
     res: dict = {}
@@ -135,6 +171,7 @@ def run_steps(mesh, arch: str, out_dir: Path, variant: dict,
                               for s in leaves(step.in_shardings[0])),
         "struct_dtype": str(leaves(structs[0])[0].dtype),
         "struct_device": str(leaves(structs[0])[0].device),
+        "strided": strided(),
     }
 
     # the same step from a one-process checkpoint, restored sharded
@@ -151,18 +188,21 @@ def run_steps(mesh, arch: str, out_dir: Path, variant: dict,
         "param_abs": max_abs(p_r, p_s),
         "loss": [float(full(m_r["loss"])), float(full(m_s["loss"]))],
         "shard_faults": shard_faults(tree["p"], step.in_shardings[0]),
+        "strided": strided(),
     }
     if train_only:
         return res
 
-    # prefill at a reduced shape
+    # prefill at a reduced shape; a hybrid's runs past its window, so
+    # that its ring cache turns
+    seq = SEQ + cfg.window // 2 if cfg.window else SEQ
     pol = ShardingPolicy(mesh, mode="serve")
-    shape = steps.ShapeSpec("prefill_test", "prefill", SEQ, BATCH)
+    shape = steps.ShapeSpec("prefill_test", "prefill", seq, BATCH)
     step, _, _ = steps.build_prefill_step(cfg, pol, shape, device="cpu")
-    toks = batch_of(cfg, 2, BATCH, SEQ)["tokens"]
+    toks = batch_of(cfg, 2, BATCH, seq)["tokens"]
     logits_s, cache_s = step(steps.place(params, step.in_shardings[0]),
                              toks)
-    logits_1, cache_1 = prefill(cfg, params, toks, max_seq=SEQ,
+    logits_1, cache_1 = prefill(cfg, params, toks, max_seq=seq,
                                 attn_impl="chunked")
     res["prefill"] = {
         "logits_abs": max_err(logits_s, logits_1),
@@ -172,6 +212,7 @@ def run_steps(mesh, arch: str, out_dir: Path, variant: dict,
                                       cache_1["len"])),
         "shard_faults": (shard_faults([logits_s], [step.out_shardings[0]])
                          + shard_faults(cache_s, step.out_shardings[1])),
+        "strided": strided(),
     }
 
     # serve: greedy decode from a prefilled cache, sharded against one
@@ -200,6 +241,7 @@ def run_steps(mesh, arch: str, out_dir: Path, variant: dict,
         "cache_abs": max(max_err(cache_s[k], cache_1[k])
                          for k in cache_1 if k != "len"),
         "shard_faults": faults,
+        "strided": strided(),
     }
     return res
 
@@ -255,6 +297,7 @@ def main() -> None:
         if job == "debug":
             res = job_debug(out_dir)
         else:
+            record_strided()
             shape = tuple(int(n) for n in job.split("-")[1].split("x"))
             res = job_steps(out_dir, shape)
         dist.barrier()

@@ -7,9 +7,11 @@ Every world runs once, in the module fixture: each is a set of
 under ``tmp_path`` (no port), with a time limit of its own; the tests
 assert on what each rank wrote.  The four step worlds, meshes (1, 2),
 (2, 1), (2, 2) and (1, 4) on 2, 2, 4 and 4 ranks (the last with the SMOKE
-GQA config alone: 2 kv heads over 4 ranks), run side by side, then the
-world of 8; ``make_production_mesh`` runs on ``fake`` process groups of 256 and
-512 ranks in one process.
+GQA config, 2 kv heads over 4 ranks, the same with 6 heads, whose query
+rows split where its heads cannot, and the SMOKE hybrid: SSD heads and a
+ring cache on 4 ranks), run side by side, then the world of 8;
+``make_production_mesh`` runs on ``fake`` process groups of 256 and 512
+ranks in one process.
 
 Tolerances, fp32 throughout:
   * logits and caches 2e-5 absolute (``chip_smoke.py``'s fp32 gate);
@@ -34,8 +36,10 @@ ROOT = Path(__file__).resolve().parents[1]
 WORKER = ROOT / "tests" / "_torch_dist_worker.py"
 STEP_WORLDS = {"1x2": 2, "2x1": 2, "2x2": 4, "1x4": 4}
 ARCHS = ("qwen1_5_0_5b", "olmoe_1b_7b")
-# the model axis wider than the kv heads (2 of them over 4 ranks)
-WORLD_ARCHS = {"1x4": ("qwen2_7b",)}
+# the model axis wider than the kv heads (2 of them over 4 ranks), the
+# same with 6 heads (the query rows split, not the heads), and the
+# hybrid's SSD and ring cache split 4 ways
+WORLD_ARCHS = {"1x4": ("qwen2_7b", "qwen2_7b+h6", "hymba_1_5b")}
 LIMIT_S = 240                   # each world's own time limit
 LOGITS_ATOL = 2e-5
 LOSS_RTOL = 1e-5
@@ -142,6 +146,17 @@ def test_sharded_leaves_hold_their_shard_alone(worlds, mesh, arch):
         assert res["train"]["sharded_leaves"] > 0
         faults = [f for step in res.values() for f in step["shard_faults"]]
         assert faults == []
+
+
+@pytest.mark.parametrize("mesh,arch", CELLS, ids=IDS)
+def test_no_dtensor_of_the_steps_is_strided(worlds, mesh, arch):
+    """No DTensor that a step creates, an intermediate of a decomposed op
+    included, has a ``_StridedShard`` placement: torch 2.13 makes one
+    where a view merges a split dim into the dims before it, and torch
+    2.11 (the card's machine) refuses that view."""
+    for res in ranks(worlds, mesh, arch):
+        assert {step: r["strided"] for step, r in res.items()
+                if r["strided"]} == {}
 
 
 @pytest.mark.parametrize("mesh,arch", CELLS, ids=IDS)

@@ -9,10 +9,12 @@ counts, held against the reference's ``hlo_cost.analyze`` and
   argument bytes are equal, exactly.
 * (4, 2): the reference on 8 host devices, the port on a ``fake`` group
   of 8, both in ``tests/_torch_cost_worker.py`` processes.  The argument
-  bytes are equal; the flops and collectives differ, and the difference
-  is attributed and pinned (ROADMAP Queue 3 item 12).
+  bytes and the flops are equal; the collectives differ, and the
+  difference is attributed and pinned (ROADMAP Queue 3 item 12).
 * ``run_cell`` on (4, 2) for every family and a train cell, and on the
   production meshes of 256 and 512 ranks.
+* The cross-entropy on logits split over the vocabulary: no all-gather
+  of the vocabulary.
 
 Every worker job runs side by side in the module fixture, each with a
 time limit of its own.
@@ -37,7 +39,8 @@ from repro_torch.launch import dryrun, hlo_cost
 ROOT = Path(__file__).resolve().parents[1]
 WORKER = ROOT / "tests" / "_torch_cost_worker.py"
 LIMIT_S = 240                   # each job's own time limit
-JOBS = ("port1", "port42", "ref42", "cells", "train_cell", "production")
+JOBS = ("port1", "port42", "ref42", "cells", "train_cell", "production",
+        "loss")
 STEPS = ("qwen1_5_0_5b/serve", "qwen1_5_0_5b/prefill", "qwen1_5_0_5b/train",
          "olmoe_1b_7b/serve")
 # the reference's per-device flops of those steps (hlo_cost.analyze)
@@ -147,7 +150,7 @@ def test_one_rank_moves_no_collective(jobs):
 
 
 # --------------------------------------------------------------------------
-# (4, 2): argument bytes equal, flops and collectives attributed
+# (4, 2): argument bytes and flops equal, collectives attributed
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch,argument", [("qwen1_5_0_5b", 181_264),
@@ -158,59 +161,69 @@ def test_4x2_argument_bytes_equal_the_reference(jobs, arch, argument):
 
 
 def test_4x2_dense_decode_flops_differ_by_the_first_layer_mlp(jobs):
-    """Layer 0's residual enters its MLP as Partial(sum) over "model" (the
-    row-parallel ``wo`` leaves it so, and DTensor keeps it through the
-    residual add and RMSNorm's scale), so DTensor gathers ``w_gate`` /
-    ``w_up`` whole and runs them on the full d_ff: twice the reference's
-    flops for those two matmuls.  Layer 1's MLP is the reference's."""
+    """They no longer differ.  Each projection's input is brought to its
+    batch placement alone (``models.layers.batch_only``) and each decode
+    residual sum is reduced once, where the reference all-reduces a
+    row-parallel output: layer 0's MLP runs on its own d_ff shard, as
+    layer 1's does, and the flops are the reference's."""
     port, ref = jobs["port42"]["qwen1_5_0_5b"], jobs["ref42"]["qwen1_5_0_5b"]
     mlp0, mlp1 = port["spans"]["mlp"]
     rows, d, ff_local = 2, 64, 64         # (8 rows / 4, d_model, d_ff / 2)
-    assert mlp1 == 3 * 2 * rows * d * ff_local == 49_152
-    assert mlp0 == 2 * (2 * rows * d * 2 * ff_local) + mlp1 // 3 == 81_920
-    assert port["flops"] == 294_912 and ref["flops"] == 262_144
-    assert port["flops"] - ref["flops"] == mlp0 - mlp1 == 32_768
+    assert mlp0 == mlp1 == 3 * 2 * rows * d * ff_local == 49_152
+    assert port["flops"] == ref["flops"] == 262_144
 
 
 def test_4x2_moe_decode_flops_differ_by_the_second_layer_router(jobs):
-    """Layer 0 leaves the residual split over both axes (batch over
-    "data" x "model"), so layer 1's replicated router runs on one of each
-    rank's two rows: fewer flops than the reference, which keeps every
-    layer's residual P(dp, None, None)."""
+    """They no longer differ: every layer's residual keeps the batch over
+    "data" alone, as the reference's P(dp, None, None), so both routers
+    work on each rank's two rows."""
     port, ref = jobs["port42"]["olmoe_1b_7b"], jobs["ref42"]["olmoe_1b_7b"]
     router0, router1 = port["spans"]["router"]
-    assert router0 == 2 * 2 * 64 * 8 and router1 == router0 // 2
-    assert port["flops"] == 363_520 and ref["flops"] == 364_544
-    assert port["flops"] - ref["flops"] == router1 - router0 == -1024
+    assert router0 == router1 == 2 * 2 * 64 * 8
+    assert port["flops"] == ref["flops"] == 364_544
 
 
 def test_4x2_decode_collectives_are_pinned(jobs):
-    """The reference all-reduces after each row-parallel matmul; DTensor
-    keeps a Partial(sum) and reduce-scatters it onto the batch when an op
-    needs the sum.  The port also gathers the embedding table whole for
-    the lookup (Queue 3 item 10) and, in layer 0, the dense MLP's three
-    weights."""
+    """The port gathers the embedding table whole for the lookup (Queue 3
+    item 10) and, in each layer, q / k / v over the heads: the decode
+    core runs every head on its own cache positions, and the new
+    position's k / v are written into a sequence-split cache.  Each
+    layer all-reduces three softmax parts of that core (the max, the
+    sum, the output) and two row-parallel outputs (``wo``, ``w_down``).
+    The MoE steps also gather the experts' outputs over "model" for the
+    combine, which each rank runs on its own rows."""
     port = jobs["port42"]["qwen1_5_0_5b"]
     ref = jobs["ref42"]["qwen1_5_0_5b"]
     assert port["collectives"]["counts"] == {
-        "all-gather": 16, "all-reduce": 6, "reduce-scatter": 7,
+        "all-gather": 7, "all-reduce": 10, "reduce-scatter": 0,
         "all-to-all": 0, "collective-permute": 0}
     assert ref["collectives"]["counts"] == {
         "all-gather": 12, "all-reduce": 9, "reduce-scatter": 0,
         "all-to-all": 0, "collective-permute": 0}
     gathers = port["gathers"]
     assert gathers.count([256, 64]) == 1            # the embedding table
-    assert gathers.count([128, 64]) == 3            # layer 0's MLP weights
+    assert gathers.count([4, 1, 2, 16]) == 6        # q, k, v a layer
     moe_port = jobs["port42"]["olmoe_1b_7b"]["collectives"]["counts"]
     moe_ref = jobs["ref42"]["olmoe_1b_7b"]["collectives"]["counts"]
     assert (moe_port["all-gather"], moe_port["all-reduce"],
-            moe_port["reduce-scatter"]) == (22, 7, 5)
+            moe_port["reduce-scatter"]) == (9, 8, 0)
     assert (moe_ref["all-gather"], moe_ref["all-reduce"],
             moe_ref["reduce-scatter"]) == (14, 9, 0)
 
 
+def test_the_loss_never_gathers_the_vocabulary(jobs):
+    """The cross-entropy and its gradient on SMOKE logits split over the
+    vocabulary ("model", 4 ranks) and the batch ("data", 2): each rank
+    reduces its own vocab shard, and the shards' parts, a few numbers a
+    token, are what moves.  No all-gather's result holds a rank's rows
+    of the logits over the whole vocabulary."""
+    rec = jobs["loss"]
+    assert rec["gathers"]
+    assert max(rec["gathers"]) < rec["rows_x_vocab"] == 2 * 16 * 256
+
+
 # --------------------------------------------------------------------------
-# run_cell, _save, parse_variant, the skip rule, the torch gate
+# run_cell, _save, parse_variant, the skip rule
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("family", ["dense", "moe", "ssm", "hybrid",
@@ -294,19 +307,6 @@ def test_the_skip_rule_is_the_references(tmp_path):
     assert rec["ok"] and rec["skipped"] and "sub-quadratic" in rec["reason"]
     assert (tmp_path / "qwen1_5_0_5b__long_500k__single.json").exists()
     assert cell_supported(get("mamba2_1_3b"), "long_500k")[0]
-
-
-def test_an_older_torch_refuses_a_multi_rank_axis(monkeypatch):
-    class FakeMesh:
-        def __init__(self, **axes):
-            self.shape, self.axis_names = axes, tuple(axes)
-
-    monkeypatch.setattr(torch, "__version__", "2.11.0+cu128")
-    with pytest.raises(RuntimeError, match="Queue 3 item 11"):
-        dryrun.check_torch(FakeMesh(data=16, model=16))
-    dryrun.check_torch(FakeMesh(data=1, model=1))
-    monkeypatch.setattr(torch, "__version__", "2.13.0+cpu")
-    dryrun.check_torch(FakeMesh(data=16, model=16))
 
 
 def test_price_uses_the_h100_datasheet_peaks():
