@@ -214,7 +214,13 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                512 (loss rel 1e-5, each gradient leaf within 1e-4 of its
                max |g|).  Whether each is bitwise, times and peak memory
                printed; no kernel of the port launched; the process group
-               destroyed at the end.
+               destroyed at the end.  Then the (1, 2), (1, 4) and (2, 2,
+               2) ``("pod", "data", "model")`` gloo worlds of
+               ``tests/_torch_dist_worker.py`` as CPU processes under this
+               machine's torch (the card holds one rank): every rank
+               within ``tests/test_torch_dist.py``'s tolerances of one
+               process, no DTensor with a ``_StridedShard`` or an
+               out-of-order split.
  16. dryrun  — ``launch/dryrun.py``'s cost model held to the card: on a
                one-rank NCCL world and a (1, 1) mesh, Qwen1.5-0.5B at full
                width in bf16 (weights from seed 0), at the mesh phase's
@@ -224,6 +230,10 @@ Phases (any failure exits non-zero; nothing is caught and continued):
                argument bytes, the median of 5 timed steps is at least
                max(compute, memory) of the H100 roofline, and the peak
                above the inputs is at least 0.95 x the predicted peak.
+               Then Qwen1.5-0.5B's ``decode_32k`` priced on a fake (16,
+               16) mesh and its ``train_4k`` on a fake (2, 16, 16) mesh
+               (which must fit 80 GB), trace seconds and GiB a rank
+               printed.
 
 fp32 matmuls run in full fp32: TF32 is switched off for cuBLAS and cuDNN.
 The last two lines are the ``{"kernels": ...}`` JSON and the
@@ -2789,12 +2799,15 @@ def mesh_phase(card: str, dev="cuda") -> None:
 # kills the process with a segmentation fault under torch 2.11; all-reduce,
 # reduce-scatter and all-to-all pass), and NCCL refuses two ranks on one
 # device: no multi-rank mesh runs on the one card.  What the multi-rank
-# path needs from this machine is its torch, so the (1, 2) and (1, 4)
-# gloo worlds of ``tests/_torch_dist_worker.py`` run here as CPU
+# path needs from this machine is its torch, so the (1, 2), (1, 4) and
+# (2, 2, 2) gloo worlds of ``tests/_torch_dist_worker.py`` run here as CPU
 # processes, side by side:
 # SMOKE dense and MoE on (1, 2); SMOKE GQA (2 kv heads on 4 ranks), the
-# same with 6 heads (the query rows split) and the SMOKE hybrid on (1, 4)
-MESH_WORLDS = {"steps-1x2": 2, "steps-1x4": 4}
+# same with 6 heads (the query rows split) and the SMOKE hybrid on (1, 4);
+# SMOKE dense and MoE on the production mesh's three axes ("pod", "data",
+# "model") as (2, 2, 2), with a dense train step of 2 microbatches that
+# dp = 4 does not divide
+MESH_WORLDS = {"steps-1x2": 2, "steps-1x4": 4, "steps-2x2x2": 8}
 MESH_WORLDS_LIMIT_S = 300
 # tests/test_torch_dist.py's tolerances
 WORLD_TOL = {"logits_abs": 2e-5, "cache_abs": 2e-5, "loss_rel": 1e-5,
@@ -2803,9 +2816,10 @@ WORLD_TOL = {"logits_abs": 2e-5, "cache_abs": 2e-5, "loss_rel": 1e-5,
 
 
 def world_errors(res: dict) -> dict:
-    """One rank's worst error per gate over its cases, and its faults:
-    a shard fault, a ``_StridedShard`` DTensor, a greedy token that
-    differs, a restore that is not the same step."""
+    """One rank's worst error per gate over its cases (a train-only case
+    has no prefill or serve), and its faults: a shard fault, a
+    ``_StridedShard`` DTensor or one with a non-default shard order, a
+    greedy token that differs, a restore that is not the same step."""
     worst = dict.fromkeys(WORLD_TOL, 0.0)
     faults = []
     for case, r in res.items():
@@ -2817,8 +2831,8 @@ def world_errors(res: dict) -> dict:
             worst[key] = max(worst[key], t[key])
         for part in ("prefill", "serve"):
             for key in ("logits_abs", "cache_abs"):
-                worst[key] = max(worst[key], r[part][key])
-        if r["serve"]["tokens"][0] != r["serve"]["tokens"][1]:
+                worst[key] = max(worst[key], r.get(part, {}).get(key, 0.0))
+        if "serve" in r and r["serve"]["tokens"][0] != r["serve"]["tokens"][1]:
             faults.append(f"{case}: greedy tokens differ")
         if r["restore"]["param_abs"] != 0.0:
             faults.append(f"{case}: the restored step differs")
@@ -3049,18 +3063,34 @@ def dryrun_phase(card: str, dev="cuda") -> None:
                           str(ROOT / "build" / "dryrun"), verbose=False)
     if not rec["ok"]:
         fail(f"dryrun {MESH_ARCH} decode_32k on (16, 16): {rec['error']}")
+    print_cell(card, rec, "decode_32k on the (16, 16) mesh")
+
+    # and the multi-pod mesh: a train cell on a fake group of 512 ranks,
+    # the batch over ("pod", "data")
+    rec = dryrun.run_cell(MESH_ARCH, "train_4k", True,
+                          str(ROOT / "build" / "dryrun"), verbose=False)
+    if not rec["ok"]:
+        fail(f"dryrun {MESH_ARCH} train_4k on (2, 16, 16): {rec['error']}")
+    print_cell(card, rec, "train_4k on the (2, 16, 16) mesh")
+    if not rec["memory"]["fits_80GB"]:
+        fail(f"dryrun {MESH_ARCH} train_4k on (2, 16, 16) does not fit")
+    print(f"  [{card}] dryrun: phase {time.monotonic() - t_phase:.1f} s",
+          flush=True)
+
+
+def print_cell(card: str, rec: dict, what: str) -> None:
+    """One priced dry-run cell (``dryrun.run_cell``'s record)."""
     mem, roof = rec["memory"], rec["roofline"]
-    print(f"  [{card}] dryrun {MESH_ARCH} decode_32k on the (16, 16) mesh "
-          f"({rec['chips']} fake ranks, torch {torch.__version__}): "
-          f"{mem['per_device_total'] / 2**30:.3f} GiB a rank (fits 80 GB "
+    print(f"  [{card}] dryrun {rec['arch']} {what} ({rec['chips']} fake "
+          f"ranks, torch {torch.__version__}): traced in {rec['trace_s']} "
+          f"s; {mem['per_device_total'] / 2**30:.3f} GiB a rank (fits 80 GB "
           f"{mem['fits_80GB']}), flops {rec['flops_per_device']}, bytes "
           f"{rec['bytes_per_device']}, collective bytes "
           f"{rec['collectives']['total']}; compute "
           f"{roof['compute_s'] * 1e3:.3f} ms, memory "
           f"{roof['memory_s'] * 1e3:.3f} ms, collective "
           f"{roof['collective_s'] * 1e3:.3f} ms -> {roof['dominant']}-bound "
-          f"(a prediction); traced in {rec['trace_s']} s; phase "
-          f"{time.monotonic() - t_phase:.1f} s", flush=True)
+          f"(a prediction)", flush=True)
 
 
 COPY_KERNELS = ("quantize_kernel", "dequantize_kernel", "gather_kernel")

@@ -391,3 +391,6 @@ class RadixPrefixCache:
             stack.extend(nd.children.values())
         return total
 
+    def hit_rate(self) -> float:
+        n = self.stats.hits + self.stats.misses
+        return self.stats.hits / n if n else 0.0

@@ -16,11 +16,18 @@ it measured to OUT as JSON.  Jobs:
                router's flops and the all-gathers' result shapes
   ref42        the reference's SMOKE serve steps on a (4, 2)
                ``jax.sharding.Mesh`` of 8 host devices
+  port222      the SMOKE qwen and olmoe serve / prefill / train steps on
+               the (2, 2, 2) ("pod", "data", "model") mesh
+  ref222       the reference's same steps on a (2, 2, 2)
+               ``jax.sharding.Mesh`` of 8 host devices
   cells        ``dryrun.run_cell`` on (4, 2): one serve cell of each
                family
   train_cell   ``dryrun.run_cell`` on (4, 2): a train cell of 2
                microbatches
   production   one SMOKE cell on each production mesh (256 and 512 ranks)
+               and a SMOKE train cell on the 512, each with the number of
+               redistributions DTensor planned with its graph-based
+               planner
   loss         the cross-entropy and its gradient on SMOKE logits split
                over (2, 4), with the element count of each all-gather's
                result
@@ -55,7 +62,8 @@ def _world(size: int):
 
 def _mesh(shape):
     from repro_torch.launch.mesh import make_debug_mesh
-    return make_debug_mesh(shape, ("data", "model"), device_type="cpu")
+    axes = ("pod", "data", "model")[-len(shape):]
+    return make_debug_mesh(shape, axes, device_type="cpu")
 
 
 def _cost(cfg, spec, mesh, **kw) -> dict:
@@ -227,6 +235,64 @@ def job_ref42() -> dict:
     return out
 
 
+def job_port222() -> dict:
+    from repro_torch.configs import get_smoke
+
+    kinds = {"serve": (SERVE, {}), "prefill": (PREFILL, {}),
+             "train": (TRAIN, {"microbatches": 1})}
+    out = {}
+    with _world(8):
+        mesh = _mesh((2, 2, 2))
+        for arch in ("qwen1_5_0_5b", "olmoe_1b_7b"):
+            for kind, (spec, kw) in kinds.items():
+                out[f"{arch}/{kind}"] = _cost(get_smoke(arch), spec, mesh,
+                                              **kw)
+    return out
+
+
+def job_ref222() -> dict:
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from jax.sharding import Mesh
+
+    from repro.configs import get_smoke
+    from repro.distributed.sharding import ShardingPolicy
+    from repro.launch import hlo_cost, steps
+
+    mesh = Mesh(np.array(jax.devices()[:8]).reshape(2, 2, 2),
+                ("pod", "data", "model"))
+    sds = jax.ShapeDtypeStruct
+    out = {}
+    for arch in ("qwen1_5_0_5b", "olmoe_1b_7b"):
+        cfg = get_smoke(arch)
+        for kind in ("serve", "prefill", "train"):
+            pol = ShardingPolicy(mesh=mesh, mode="train" if kind == "train"
+                                 else "serve")
+            with mesh:
+                if kind == "train":
+                    jitted, st, _ = steps.build_train_step(cfg, pol,
+                                                           microbatches=1)
+                    lowered = jitted.lower(st[0], st[1], {
+                        k: sds((TRAIN[3], TRAIN[2]), jnp.int32)
+                        for k in ("tokens", "labels")})
+                elif kind == "prefill":
+                    jitted, st, _ = steps.build_prefill_step(cfg, pol)
+                    lowered = jitted.lower(
+                        st[0], sds((PREFILL[3], PREFILL[2]), jnp.int32))
+                else:
+                    jitted, st, _ = steps.build_serve_step(cfg, pol)
+                    lowered = jitted.lower(
+                        st[0], steps.cache_struct(cfg, SERVE[3], SERVE[2]),
+                        sds((SERVE[3],), jnp.int32))
+                compiled = lowered.compile()
+            out[f"{arch}/{kind}"] = {
+                **hlo_cost.analyze(compiled.as_text()),
+                "argument": int(
+                    compiled.memory_analysis().argument_size_in_bytes)}
+    return out
+
+
 def job_cells(out_dir: str) -> dict:
     from repro_torch.configs import get_smoke
     from repro_torch.launch import dryrun
@@ -254,16 +320,43 @@ def job_train_cell(out_dir: str) -> dict:
             cfg=get_smoke("qwen1_5_0_5b"), mesh=_mesh((4, 2)))
 
 
+def count_graph_plans() -> list:
+    """Count, from now on, each redistribution plan DTensor makes with its
+    graph-based planner: the one it is forced to take for a spec with a
+    ``_StridedShard`` or a non-default shard order, whose cost grows
+    with the mesh's dims (torch 2.13's ``_redistribute``)."""
+    from torch.distributed.tensor import _redistribute as red
+
+    planned = [0]
+    make = red.DTensorRedistributePlanner.generate_graph_based_transform_infos
+
+    def counting(self, *args, **kwargs):
+        planned[0] += 1
+        return make(self, *args, **kwargs)
+
+    red.DTensorRedistributePlanner.generate_graph_based_transform_infos = \
+        counting
+    return planned
+
+
 def job_production(out_dir: str) -> dict:
     from repro_torch.configs import get_smoke
     from repro_torch.launch import dryrun
     from repro_torch.launch.steps import ShapeSpec
 
+    planned = count_graph_plans()
     cfg = get_smoke("qwen1_5_0_5b")
-    shape = ShapeSpec("decode_512x64", "decode", 64, 512)
-    return {mesh: dryrun.run_cell("qwen1_5_0_5b", shape, mesh == "multi",
-                                  out_dir, verbose=False, cfg=cfg)
-            for mesh in ("single", "multi")}
+    cells = {"single": ShapeSpec("decode_512x64", "decode", 64, 512),
+             "multi": ShapeSpec("decode_512x64", "decode", 64, 512),
+             "multi_train": ShapeSpec("train_64x64", "train", 64, 64)}
+    out = {}
+    for name, shape in cells.items():
+        planned[0] = 0
+        out[name] = dryrun.run_cell("qwen1_5_0_5b", shape,
+                                    name.startswith("multi"), out_dir,
+                                    verbose=False, cfg=cfg)
+        out[name]["graph_plans"] = planned[0]
+    return out
 
 
 def job_loss() -> dict:

@@ -5,21 +5,23 @@
 The ranks meet through a ``FileStore`` at STORE (no port), run JOB and
 write what they measured to OUT/rank<RANK>.json; the test asserts on it.
 Jobs:
-  steps-DxM  the sharded train / prefill / serve steps of the SMOKE dense
-          and MoE configs (``launch.steps``) on a (D, M) ``("data",
+  steps-DxM, steps-PxDxM  the sharded train / prefill / serve steps of
+          the SMOKE dense and MoE configs (``launch.steps``) on a (D, M)
+          ``("data", "model")`` or a (P, D, M) ``("pod", "data",
           "model")`` mesh against the one-process port functions; the
           local shard of every leaf the specs shard; a one-process
           checkpoint restored with ``shardings=`` into the same step.  On
           (2, 2) the dense train step also runs with ``grad_rs`` and 2
-          microbatches of the same shape (a batch of 2 x BATCH); on
+          microbatches of the same shape (a batch of 2 x BATCH), and on
+          (2, 2, 2) with 2 microbatches that dp = 4 does not divide; on
           (1, 4) the SMOKE GQA config (2 kv heads over 4 ranks), the
           same with 6 heads (q cannot split over the heads, so the
           attention cores split the query rows) and the SMOKE hybrid (SSD
           heads, a ring cache past its window) run.
           Every DTensor the steps create, the intermediates of decomposed
           ops included, is recorded; those with a ``_StridedShard``
-          placement (torch 2.13 makes one where 2.11 refuses a view) are
-          listed per step
+          placement (torch 2.13 makes one where 2.11 refuses a view) or a
+          non-default shard order are listed per step
   debug   ``make_debug_mesh((4, 2))`` on a world of 8
   fake    ``make_production_mesh`` on a ``fake`` process group of 256 and
           of 512 ranks in this one process
@@ -65,18 +67,32 @@ BATCH, SEQ = 4, 16                   # train and prefill
 PROMPT, CACHE, DECODE = 8, 32, 8     # serve: prompt, cache capacity, tokens
 
 
-STRIDED: list = []                   # DTensors made with a _StridedShard
+STRIDED: list = []       # DTensors with a _StridedShard or out of order
+
+
+def out_of_order(spec) -> bool:
+    """Whether ``spec`` splits a dim over mesh dims in another order than
+    left to right (torch 2.13's ``shard_order``, which is None where a
+    ``_StridedShard`` stands for it; 2.11 may have none)."""
+    order = getattr(spec, "shard_order", None) or ()
+    return any(list(e.mesh_dims) != sorted(e.mesh_dims) for e in order)
 
 
 def record_strided() -> None:
     """Record each DTensor made from now on whose placements hold a
-    ``_StridedShard`` (``DTensor.__init__`` runs for every DTensor that
-    an op, a redistribution or ``from_local`` makes)."""
+    ``_StridedShard`` or whose spec has a non-default shard order: either
+    sends DTensor's redistributions through its graph-based planner, and
+    torch 2.11 refuses the views that make a ``_StridedShard``
+    (``DTensor.__init__`` runs for every DTensor that an op, a
+    redistribution or ``from_local`` makes)."""
     init = DTensor.__init__
 
     def recording(self, *args, **kwargs):
-        if any(isinstance(p, _StridedShard) for p in self._spec.placements):
-            STRIDED.append(f"{tuple(self.shape)} {self._spec.placements}")
+        spec = self._spec
+        if any(isinstance(p, _StridedShard) for p in spec.placements) \
+                or out_of_order(spec):
+            STRIDED.append(f"{tuple(self.shape)} {spec.placements} "
+                           f"{getattr(spec, 'shard_order', None)}")
         init(self, *args, **kwargs)
 
     DTensor.__init__ = recording
@@ -127,6 +143,12 @@ def shard_faults(tree, shardings) -> list:
     return bad
 
 
+def names_of(placements) -> list:
+    """"S(d)" for a shard of dim d, "R" for a replica, per mesh dim."""
+    return [f"S({q.dim})" if q.is_shard() else "R" if q.is_replicate()
+            else str(q) for q in placements]
+
+
 def batch_of(cfg, seed: int, b: int, s: int) -> dict:
     g = torch.Generator().manual_seed(seed)
     return {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=g),
@@ -169,6 +191,10 @@ def run_steps(mesh, arch: str, out_dir: Path, variant: dict,
                          + shard_faults(o_s.mu, step.out_shardings[1].mu)),
         "sharded_leaves": sum(any(e is not None for e in s.spec)
                               for s in leaves(step.in_shardings[0])),
+        # where the batch and a weight lie, one placement per mesh dim
+        "placements": {
+            "tokens": names_of(step.in_shardings[2]["tokens"].placements),
+            "wq": names_of(p_in["layers"]["attn"]["wq"].placements)},
         "struct_dtype": str(leaves(structs[0])[0].dtype),
         "struct_device": str(leaves(structs[0])[0].device),
         "strided": strided(),
@@ -247,7 +273,8 @@ def run_steps(mesh, arch: str, out_dir: Path, variant: dict,
 
 
 def job_steps(out_dir: Path, shape: tuple) -> dict:
-    mesh = make_debug_mesh(shape, ("data", "model"), device_type="cpu")
+    axes = ("pod", "data", "model")[-len(shape):]
+    mesh = make_debug_mesh(shape, axes, device_type="cpu")
     if shape == (1, 4):
         return {arch: run_steps(mesh, arch, out_dir, {"microbatches": 1})
                 for arch in WIDE_ARCHS}
@@ -256,6 +283,12 @@ def job_steps(out_dir: Path, shape: tuple) -> dict:
         out[f"{ARCHS[0]}+mb2+grad_rs"] = run_steps(
             mesh, ARCHS[0], out_dir, {"microbatches": 2, "grad_rs": True},
             train_only=True, batch=2 * BATCH)
+    if shape == (2, 2, 2):
+        # dp = 4 does not divide 2 microbatches: each rank's own rows
+        # make its share of a microbatch (``split_microbatches``)
+        out[f"{ARCHS[0]}+mb2"] = run_steps(
+            mesh, ARCHS[0], out_dir, {"microbatches": 2}, train_only=True,
+            batch=2 * BATCH)
     return out
 
 

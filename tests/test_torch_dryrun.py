@@ -11,8 +11,14 @@ counts, held against the reference's ``hlo_cost.analyze`` and
   of 8, both in ``tests/_torch_cost_worker.py`` processes.  The argument
   bytes and the flops are equal; the collectives differ, and the
   difference is attributed and pinned (ROADMAP Queue 3 item 12).
+* (2, 2, 2), the production mesh's three axes ("pod", "data", "model"):
+  the same on the SMOKE qwen and olmoe serve, prefill and train steps.
+  The argument bytes are equal; the flops are equal but for the MoE
+  router's, and the collectives differ; both are attributed and pinned
+  (ROADMAP Queue 3 item 12).
 * ``run_cell`` on (4, 2) for every family and a train cell, and on the
-  production meshes of 256 and 512 ranks.
+  production meshes of 256 and 512 ranks, where no redistribution takes
+  DTensor's graph-based planner.
 * The cross-entropy on logits split over the vocabulary: no all-gather
   of the vocabulary.
 
@@ -39,8 +45,10 @@ from repro_torch.launch import dryrun, hlo_cost
 ROOT = Path(__file__).resolve().parents[1]
 WORKER = ROOT / "tests" / "_torch_cost_worker.py"
 LIMIT_S = 240                   # each job's own time limit
-JOBS = ("port1", "port42", "ref42", "cells", "train_cell", "production",
-        "loss")
+JOBS = ("port1", "port42", "ref42", "port222", "ref222", "cells",
+        "train_cell", "production", "loss")
+# the reference's jobs, on 8 host devices
+REF_JOBS = ("ref42", "ref222")
 STEPS = ("qwen1_5_0_5b/serve", "qwen1_5_0_5b/prefill", "qwen1_5_0_5b/train",
          "olmoe_1b_7b/serve")
 # the reference's per-device flops of those steps (hlo_cost.analyze)
@@ -68,7 +76,7 @@ def jobs(tmp_path_factory):
     procs = {job: subprocess.Popen(
         [sys.executable, str(WORKER), job, str(root / f"{job}.json")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        env=jax_env if job == "ref42" else base, cwd=ROOT) for job in JOBS}
+        env=jax_env if job in REF_JOBS else base, cwd=ROOT) for job in JOBS}
     out = {}
     for job, p in procs.items():
         left = max(1.0, LIMIT_S - (time.monotonic() - t0))
@@ -211,6 +219,87 @@ def test_4x2_decode_collectives_are_pinned(jobs):
             moe_ref["reduce-scatter"]) == (14, 9, 0)
 
 
+# --------------------------------------------------------------------------
+# (2, 2, 2): argument bytes equal, flops and collectives attributed
+# --------------------------------------------------------------------------
+
+STEPS_222 = {"qwen1_5_0_5b/serve": 181_264, "qwen1_5_0_5b/prefill": 116_736,
+             "qwen1_5_0_5b/train": 410_628, "olmoe_1b_7b/serve": 232_208,
+             "olmoe_1b_7b/prefill": 167_680, "olmoe_1b_7b/train": 939_268}
+
+
+@pytest.mark.parametrize("name,argument", STEPS_222.items())
+def test_2x2x2_argument_bytes_equal_the_reference(jobs, name, argument):
+    """The batch over ("pod", "data"), FSDP over "data" alone and
+    replicated over "pod", TP over "model": each rank holds the bytes the
+    reference's partitioner gives it."""
+    assert jobs["port222"][name]["memory"]["argument"] \
+        == jobs["ref222"][name]["argument"] == argument
+
+
+@pytest.mark.parametrize("name", STEPS_222)
+def test_2x2x2_flops_equal_the_reference_but_the_moe_router(jobs, name):
+    """Equal, but for the MoE router in prefill and train: the port runs
+    routing, dispatch and combine on each rank's batch rows whole
+    (``models.layers.on_batch_shards``), so every "model" rank computes
+    the router's logits over all of its rows' tokens; the reference's
+    partitioner computes them on the sequence shard that the residual
+    stream holds there, 1 / 2 of the tokens.  The difference is the
+    other half of the router's matmul: 2 x tokens x d x E a layer, once
+    in prefill, 4 times in train (forward, the remat forward, and two
+    products in the backward)."""
+    from repro_torch.configs import get_smoke
+
+    arch, kind = name.split("/")
+    port, ref = jobs["port222"][name]["flops"], jobs["ref222"][name]["flops"]
+    cfg = get_smoke(arch)
+    tokens = 8 // 4 * 128                 # a rank's batch rows x seq
+    router = 2 * tokens * cfg.d_model * cfg.n_experts * cfg.n_layers
+    extra = {"serve": 0, "prefill": router // 2, "train": 4 * router // 2}
+    assert port - ref == (extra[kind] if cfg.family == "moe" else 0)
+    if cfg.family == "moe" and kind != "serve":
+        assert port - ref == {"prefill": 262_144, "train": 1_048_576}[kind]
+
+
+def _counts(ag, ar, rs, a2a, cp):
+    return {"all-gather": ag, "all-reduce": ar, "reduce-scatter": rs,
+            "all-to-all": a2a, "collective-permute": cp}
+
+
+# (port, reference) collectives by kind; attributed in ROADMAP Queue 3
+# item 12
+COLLECTIVES_222 = {
+    "qwen1_5_0_5b/serve": (_counts(7, 10, 0, 0, 0), _counts(12, 9, 0, 0, 0)),
+    "qwen1_5_0_5b/prefill": (_counts(8, 0, 4, 4, 0),
+                             _counts(25, 1, 0, 0, 7)),
+    "qwen1_5_0_5b/train": (_counts(81, 190, 48, 0, 0),
+                           _counts(85, 26, 0, 0, 12)),
+    "olmoe_1b_7b/serve": (_counts(9, 8, 0, 0, 0), _counts(14, 9, 0, 0, 0)),
+    "olmoe_1b_7b/prefill": (_counts(10, 0, 2, 4, 0),
+                            _counts(25, 3, 0, 0, 7)),
+    "olmoe_1b_7b/train": (_counts(71, 209, 38, 0, 0),
+                          _counts(75, 30, 0, 0, 12)),
+}
+
+
+@pytest.mark.parametrize("name", STEPS_222)
+def test_2x2x2_collectives_are_pinned(jobs, name):
+    """The decode steps move what they move on (4, 2): "pod" and "data"
+    together split the batch as "data" alone did.  Prefill: the port
+    all-gathers the sequence before each projection (Megatron's
+    all-gather, ``models.layers.batch_only``) and reduce-scatters each
+    row-parallel output back onto it, and moves the attention's query
+    rows by all-to-all; the reference's partitioner gathers more operands
+    and shifts others by collective-permute.  Train: DTensor reduces a
+    sum over the batch shards with one collective per mesh dim ("pod"
+    and "data" apart, where XLA runs one over both) and one per
+    gradient leaf and op, where XLA's combiner merges them: most of the
+    port's all-reduces are those."""
+    port, ref = COLLECTIVES_222[name]
+    assert jobs["port222"][name]["collectives"]["counts"] == port
+    assert jobs["ref222"][name]["collectives"]["counts"] == ref
+
+
 def test_the_loss_never_gathers_the_vocabulary(jobs):
     """The cross-entropy and its gradient on SMOKE logits split over the
     vocabulary ("model", 4 ranks) and the batch ("data", 2): each rank
@@ -261,6 +350,18 @@ def test_a_smoke_cell_runs_on_each_production_mesh(jobs, mesh, chips):
     assert rec["ok"], rec.get("error")
     assert rec["chips"] == chips
     assert rec["collectives"]["total"] > 0
+
+
+@pytest.mark.parametrize("cell", ["single", "multi", "multi_train"])
+def test_no_redistribution_takes_the_graph_planner(jobs, cell):
+    """DTensor plans a redistribution with its graph-based planner only
+    for a spec with a ``_StridedShard`` or a non-default shard order, and
+    that planner's cost grows with the mesh: it made a train cell's trace
+    on (2, 16, 16) take 35 min.  No spec of the port's steps has either,
+    so no plan is made so, on three axes as on two."""
+    rec = jobs["production"][cell]
+    assert rec["ok"], rec.get("error")
+    assert rec["graph_plans"] == 0
 
 
 def test_saved_file_names_are_the_references(jobs, tmp_path):

@@ -27,6 +27,7 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "import repro_torch.examples.quickstart\n"
         "import repro_torch.examples.serve_cluster\n"
         "import repro_torch.examples.shared_prefix\n"
+        "import repro_torch.examples.priority_serving\n"
         "import repro_torch.training, repro_torch.launch.train\n"
         "import repro_torch.examples.train_resume\n"
         "import repro_torch.distributed, repro_torch.launch.mesh\n"

@@ -118,7 +118,8 @@ def caches(num_blocks=64):
 def test_radix_cache_mirrors_jax():
     """Inserts with shared prefixes and splits, capped matches, pinned
     and shared blocks surviving reclaim, priority-weighted LRU eviction:
-    every return value and the pool state equal the JAX cache's."""
+    every return value, the hit rate and the pool state equal the JAX
+    cache's."""
     rng = np.random.default_rng(7)
     a = rng.integers(1, 999, 80).astype(np.int32)
     b = np.concatenate([a[:32], rng.integers(1, 999, 40)]).astype(np.int32)
@@ -133,6 +134,7 @@ def test_radix_cache_mirrors_jax():
             bm.charge_cache(n)
             out.append(n)
         out.append(cache.cached_blocks)
+        out.append(cache.hit_rate())               # no match yet: 0.0
         out.append(cache.match(a, now=3.0, rid=4))
         out.append(cache.match(b, now=3.0, rid=5))
         out.append(cache.match(a[:16], now=3.0, rid=6))
@@ -145,7 +147,8 @@ def test_radix_cache_mirrors_jax():
         out.append(cache.reclaim(3))               # LRU, weight-aware
         out.append(cache.match(b, now=4.0, rid=7))
         out.append(cache.reclaim(100))
-        out.append((cache.cached_blocks, bm.cache_charge, pool.free[:]))
+        out.append((cache.cached_blocks, bm.cache_charge, pool.free[:],
+                    cache.hit_rate()))
         results.append(out)
     assert results[1] == results[0]
-    assert results[0][4][0] == 64 and results[0][7] == 0
+    assert results[0][5][0] == 64 and results[0][8] == 0

@@ -1,5 +1,5 @@
 """The port's runnable entry points of the service tier on the CPU: the
-three examples (``python -m repro_torch.examples.X --smoke --device
+four examples (``python -m repro_torch.examples.X --smoke --device
 cpu``), the replay CLI's frontend mode, and ``tools/torch_perf_smoke.py``
 (host syncs, identical streams, and the live/sim counter parity for the
 tiered store, disaggregation and speculation)."""
@@ -33,6 +33,22 @@ def test_shared_prefix_example_on_cpu():
     res = shared_prefix.main(["--smoke", "--device", "cpu"])
     assert res[True]["completed"] == res[False]["completed"] == "8/8"
     assert res[False]["cache_hit_tokens"] == 0
+
+
+def test_priority_serving_example_streams_are_greedy_on_cpu():
+    """The example preempts in a 20-block pool; every stream equals
+    uninterrupted greedy decoding of its prompt, recomputed here."""
+    from repro_torch.examples import priority_serving
+    from repro_torch.models.model import greedy_generate
+    out = priority_serving.main(["--smoke", "--device", "cpu"])
+    eng, reqs = out["engine"], out["requests"]
+    assert len(reqs) == 8 and eng.stats.evictions > 0
+    assert sum(r.preemptions for r, _ in reqs) > 0
+    for r, prompt in reqs:
+        assert eng.outputs[r.rid] == greedy_generate(
+            out["cfg"], out["params"], prompt, 4)
+    assert all(out["exact"].values())
+    assert 0.0 <= out["tdg_ratio"] <= 1.0
 
 
 def test_replay_cli_frontend_mode_on_cpu(capsys):
