@@ -69,6 +69,9 @@ class BatchPlan:
     est_time: float = 0.0        # estimator's view of batch latency
     t_budget: float = 0.0        # SlideBatching latency budget (0 = n/a)
     copy_blocks: int = 0         # H2D blocks consumed this round
+    # SlideBatching, when it admits nothing while requests are queued: why
+    # ("budget", "copy", "blocks" or "none_ready"; see slidebatching.py)
+    idle_reason: str = ""
 
     def work_items(self):
         return [e.work_item() for e in self.entries]

@@ -12,6 +12,13 @@ Per iteration:
       consuming copy budget for evicted requests, evicting tail requests
       when device blocks run short.
 
+A round that admits nothing while requests are queued names one reason in
+``BatchPlan.idle_reason``: ``budget`` (the loop stopped before its first
+admission, ``t_c >= t_budget``), else the refusal of the first request in
+order that had work: ``copy`` (its reload got no copy budget) or
+``blocks`` (no device blocks even after eviction); ``none_ready`` when no
+queued request had work it could run.  The reason changes no decision.
+
 The load-judgment function phi:
   PD co-location (Eq. 8):  phi(Q)   = t_budget/(t_budget - t_c) * sum exec
   PD disaggregation:       phi_p(Q) = sum exec + |Q| * t_c
@@ -29,6 +36,8 @@ from .request import Phase, Request
 from .spec import AcceptanceEWMA, policy_depth
 
 URGENT, NORMAL = 0, 1
+# why a round admitted nothing (BatchPlan.idle_reason)
+BUDGET, COPY, BLOCKS, NONE_READY = "budget", "copy", "blocks", "none_ready"
 
 
 @dataclass
@@ -141,32 +150,40 @@ class SlideBatching:
         protect: set[int] = set()
         token_cap = cfg.token_budget if not self.latency_aware_budget else None
         tokens_used = 0
+        idle = ""
         for r in order:
             if len(plan.entries) >= cfg.max_seqs:
                 break
             if self.latency_aware_budget:
                 if t_batch >= t_budget:
+                    idle = idle or BUDGET
                     break
                 t_left = t_budget - t_batch
             else:
                 if tokens_used >= token_cap:
+                    idle = idle or BUDGET
                     break
                 t_left = float("inf")
 
-            entry, t, used_copy = self._admit(view, r, t_left,
-                                              token_cap, tokens_used,
-                                              copy_budget, protect, plan)
+            entry, t, used_copy, why = self._admit(view, r, t_left,
+                                                   token_cap, tokens_used,
+                                                   copy_budget, protect,
+                                                   plan)
             # reloads may have been applied even if admission then failed —
             # they consumed real H2D bandwidth either way.
             copy_budget -= used_copy
             plan.copy_blocks += used_copy
             if entry is None:
+                if idle in ("", NONE_READY):
+                    idle = why
                 continue
             plan.entries.append(entry)
             protect.add(r.rid)
             t_batch += t
             tokens_used += entry.n_tokens
         plan.est_time = view.est.batch_time(plan.work_items())
+        if not plan.entries:
+            plan.idle_reason = idle
         return plan
 
     # ------------------------------------------------------------------
@@ -244,7 +261,8 @@ class SlideBatching:
     def _admit(self, view: SchedView, r: Request, t_left: float,
                token_cap, tokens_used: int, copy_budget: int,
                protect: set[int], plan: BatchPlan):
-        """Lines 17-23 for one request. Returns (entry|None, time, copies)."""
+        """Lines 17-23 for one request. Returns (entry|None, time, copies,
+        why it was refused or "")."""
         bm, est, cfg = view.bm, view.est, view.cfg
         s = bm.state(r)
         todo, _ = compute_remaining(r, bm)
@@ -258,7 +276,7 @@ class SlideBatching:
             cplan = bm.plan_reload(r, copy_budget,
                                    max(chunk_cap, 1), max(todo, 1))
             if not cplan.admitted:
-                return None, 0.0, 0     # line 19-20: skip this round
+                return None, 0.0, 0, COPY   # line 19-20: skip this round
             if cplan.restore_blocks or cplan.drop_host_tokens:
                 need = cplan.restore_blocks
                 if need > bm.free_blocks:
@@ -266,7 +284,7 @@ class SlideBatching:
                     plan.evictions.extend(
                         evict_for_space(view, need, protect | {r.rid}))
                 if need > bm.free_blocks:
-                    return None, 0.0, 0
+                    return None, 0.0, 0, BLOCKS
                 bm.apply_reload(r, cplan, view.now)
                 used_copy = cplan.restore_blocks
             todo, _ = compute_remaining(r, bm)
@@ -278,15 +296,15 @@ class SlideBatching:
             depth, t = self._assign_depth(view, r, l_kv, t0, t_left,
                                           plan.t_budget)
             if t > t_left and plan.entries:
-                return None, 0.0, used_copy
+                return None, 0.0, used_copy, BUDGET
             if not grow_with_eviction(view, r, 1, protect | {r.rid},
                                       plan.evictions):
-                return None, 0.0, used_copy
-            return BatchEntry(r, 1, l_kv, False, depth), t, used_copy
+                return None, 0.0, used_copy, BLOCKS
+            return BatchEntry(r, 1, l_kv, False, depth), t, used_copy, ""
 
         # --- (chunked) prefill / recompute ---------------------------------
         if todo <= 0:
-            return None, 0.0, used_copy
+            return None, 0.0, used_copy, NONE_READY
         cap = todo
         if token_cap is not None:
             cap = min(cap, token_cap - tokens_used)
@@ -297,8 +315,9 @@ class SlideBatching:
                 chunk = min(cap, max(1, view.cfg.chunk_size))
                 t = est.prefill_time(chunk, s.dev_tokens)
             else:
-                return None, 0.0, used_copy
+                return None, 0.0, used_copy, BUDGET
         if not grow_with_eviction(view, r, chunk, protect | {r.rid},
                                   plan.evictions):
-            return None, 0.0, used_copy
-        return BatchEntry(r, chunk, s.dev_tokens - chunk, True), t, used_copy
+            return None, 0.0, used_copy, BLOCKS
+        return (BatchEntry(r, chunk, s.dev_tokens - chunk, True), t,
+                used_copy, "")

@@ -569,9 +569,10 @@ class FrontendResult:
                     "decode_launches", "packed_prefill_calls", "host_syncs",
                     "offload_blocks", "transfer_failures", "handoffs_out",
                     "handoff_blocks_out", "handoff_bytes_out", "handoffs_in",
-                    "handoff_blocks_in", "handoff_bytes_in"):
+                    "handoff_blocks_in", "handoff_bytes_in", "d2h_copy_s",
+                    "d2h_copy_blocks", "h2d_copy_s", "h2d_copy_blocks"):
             out[key] = sum(getattr(e.stats, key) for e in self.replicas)
-        out["busy_s"] = {iid: sum(e.stats.batch_latencies)
+        out["busy_s"] = {iid: e.stats.busy_s
                          for iid, e in self.engines.items()}
         for key in ("handoffs", "handoff_blocks", "handoff_bytes",
                     "reservation_hits", "reservation_misses",

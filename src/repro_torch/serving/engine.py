@@ -66,13 +66,13 @@ import logging
 import queue
 import threading
 import time
-from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from .. import obs
 from ..core.batching import (BatchPlan, EngineConfig, SchedView,
                              evict_for_space, needed_context)
 from ..core.blocks import BlockManager, blocks_for
@@ -87,6 +87,9 @@ from .spec import DraftRunner
 from .transfer import TransferWorker
 
 logger = logging.getLogger(__name__)
+
+# the spans of a request's life in the engine (``repro_torch.obs``)
+QUEUED, PREFILL, DECODE = "request.queued", "request.prefill", "request.decode"
 
 
 @dataclass(frozen=True)
@@ -159,10 +162,6 @@ class StepEvent:
     est_time: float
     prefill_done: tuple = ()     # rids whose first token just came out
     finished: tuple = ()         # rids fully generated this step
-    # per-step transfer/overlap telemetry (§4.3 lanes made real)
-    offload_blocks: int = 0      # D2H completions drained this step
-    reload_blocks: int = 0       # H2D blocks restored for this batch
-    transfer_wait: float = 0.0   # seconds the step stalled on sync copies
 
 
 @dataclass(frozen=True)
@@ -199,6 +198,12 @@ class EngineStats:
     transfer_failures: int = 0     # background copies that raised (fell
     # back to the synchronous path; the first one is logged by the worker)
     t_block_measured: float = 0.0  # EWMA per-block copy time (closed loop)
+    # cumulative background-lane copies, per direction (the copy time the
+    # worker measures, and the blocks it moved, stale completions included)
+    d2h_copy_s: float = 0.0
+    d2h_copy_blocks: int = 0
+    h2d_copy_s: float = 0.0
+    h2d_copy_blocks: int = 0
     refit_failures: int = 0        # online estimator refits that failed
     decode_launches: int = 0       # decode_step calls (one per step with
     # decode work)
@@ -224,9 +229,8 @@ class EngineStats:
     spec_rejected: int = 0         # proposals refuted (== proposed - accepted)
     draft_launches: int = 0        # draft-model calls (prefill + rounds)
     spec_depth_hist: dict = field(default_factory=dict)  # depth -> entries
-    # bounded: long-lived replicas must not grow without limit
-    batch_latencies: deque = field(
-        default_factory=lambda: deque(maxlen=512))
+    busy_s: float = 0.0            # host time of the steps that formed a
+    # batch, from the plan's first copy to the last token emitted
 
 
 class Engine:
@@ -348,6 +352,9 @@ class Engine:
         self.refit_every = 50
         self.alive = True
         self.outputs: dict[int, list[int]] = {}
+        # while the recorder is on: rid -> (the ``request.*`` span the
+        # request is in, its start on time.monotonic())
+        self._t_req: dict[int, tuple[str, float]] = {}
         # streaming hook: called as on_token(req, tok, first, last) at the
         # instant of emission
         self.on_token: Optional[Callable[[Request, int, bool, bool],
@@ -360,6 +367,8 @@ class Engine:
         failover — the engine resumes mid-generation by recomputing their
         KV (they are ordinary known tokens) and continuing exactly."""
         req.instance = id(self) & 0xffff
+        if obs.recorder().enabled:
+            self._t_req[req.rid] = (QUEUED, time.monotonic())
         self.queue.append(req)
         self.outputs[req.rid] = list(prior_outputs or [])
         prompt = np.asarray(prompt_tokens, np.int32)
@@ -398,12 +407,13 @@ class Engine:
         self._offload_directives.append(
             (rid, start, n, self._epoch.get(rid, 0)))
 
-    def _dispatch_offloads(self) -> None:
+    def _dispatch_offloads(self) -> int:
         """Snapshot each recorded directive's blocks (one device gather)
-        and hand them to the background D2H lane."""
+        and hand them to the background D2H lane; returns the blocks."""
         directives, self._offload_directives = self._offload_directives, []
         if self.worker is None:
-            return
+            return 0
+        sent = 0
         for rid, start, n, epoch in directives:
             if epoch != self._epoch.get(rid, 0):
                 continue            # evicted since the directive
@@ -420,6 +430,8 @@ class Engine:
             else:
                 gathered = self.pool.gather_blocks(rid, logical)
             self.worker.offload(rid, epoch, logical, gathered)
+            sent += len(logical)
+        return sent
 
     def _drain_transfers(self) -> int:
         """Collect background-copy completions; feed the accounting lanes
@@ -428,7 +440,14 @@ class Engine:
         if self.worker is None:
             return 0
         landed = 0
+        st = self.stats
         for d in self.worker.drain():
+            if d.ok and d.kind == "d2h":
+                st.d2h_copy_s += d.seconds
+                st.d2h_copy_blocks += d.n_blocks
+            elif d.ok:
+                st.h2d_copy_s += d.seconds
+                st.h2d_copy_blocks += d.n_blocks
             if d.kind == "d2h" and d.rid in self._handoff_wait:
                 # handoff export riding the D2H lane: the local leg is
                 # already released, so this must be intercepted BEFORE the
@@ -493,15 +512,16 @@ class Engine:
                 self.stats.t_block_measured = self.bm.t_block
         return landed
 
-    def _prefetch_reloads(self) -> None:
+    def _prefetch_reloads(self) -> int:
         """Hint the H2D staging lane: evicted requests near the head of the
         (policy-sorted) queue will likely reload next round, so stage their
         host blocks now and the copy lands before the batch that needs
         it.  Payloads go out in tier wire format: cold groups ship int8 and
         the worker dequantizes on device.  Leftover slots stage the most
-        recently touched radix-cache spill groups."""
+        recently touched radix-cache spill groups.  Returns the groups
+        staged."""
         if self.worker is None:
-            return
+            return 0
         hinted = 0
         for r in self.queue:
             if hinted >= self.worker.max_staged:
@@ -521,6 +541,7 @@ class Engine:
                     self.worker.max_staged - hinted):
                 if self.worker.prefetch(host_rid, 0, payloads):
                     hinted += 1
+        return hinted
 
     def _forget_transfers(self, rid: int) -> None:
         """Invalidate all in-flight transfer state for rid (eviction)."""
@@ -635,6 +656,7 @@ class Engine:
         self.outputs.pop(rid, None)
         self._seqs.pop(rid, None)
         self._seq_fill.pop(rid, None)
+        self._t_req.pop(rid, None)
         if self.draft is not None:
             self.draft.drop(rid)
         self.queue = [q for q in self.queue if q.rid != rid]
@@ -701,6 +723,8 @@ class Engine:
             data = self._dev(np.stack(entries))
         self.pool._scatter(self.pool.tables[rid], data)
         req.instance = id(self) & 0xffff
+        if obs.recorder().enabled:
+            self._t_req[rid] = (QUEUED, time.monotonic())
         self.queue.append(req)
         self.outputs[rid] = list(payload.outputs)
         prompt = np.asarray(payload.prompt, np.int32)
@@ -725,36 +749,126 @@ class Engine:
         self.now = max(self.now, time.monotonic() - epoch)
 
     def step(self) -> Optional[dict]:
-        if not self.alive:
-            return None
-        if self._wall_epoch is not None:
-            self.now = max(self.now, time.monotonic() - self._wall_epoch)
-        offload_landed = self._drain_transfers()
-        self.bm.complete_offloads(self.now)
-        self._sync_tier_state()
-        if self.role == "prefill":
-            # straggler exports (e.g. a full-prompt cache hit made the
-            # request decode-ready without any prefill work this step) —
-            # and keeps export-ready requests out of the local batch
-            self._collect_handoffs()
-        view = SchedView(self.queue, self.bm, self.est, self.eng_cfg,
-                         self.now)
-        plan = self.policy.form_batch(view)
-        if not plan.entries:
-            # evictions can outlive a failed admission round: keep the
-            # pool consistent with the accounting before going idle, and
-            # use the idle gap to stage likely reloads
-            if plan.evictions:
+        # a step that finds nothing queued records nothing: an idle
+        # engine's driver steps it after every park (2 ms), which would
+        # fill the recorder's ring in half a minute
+        on = obs.recorder().enabled and bool(self.queue)
+        span = obs.span if on else obs.quiet
+        with span("engine.step") as sp:
+            if not self.alive:
+                return None
+            t_step = (time.monotonic()
+                      if on or self._wall_epoch is not None else 0.0)
+            if self._wall_epoch is not None:
+                self.now = max(self.now, t_step - self._wall_epoch)
+            with span("engine.transfers") as tr:
+                tr.set(blocks=self._drain_transfers())
+                self.bm.complete_offloads(self.now)
+                self._sync_tier_state()
+                if self.role == "prefill":
+                    # straggler exports (e.g. a full-prompt cache hit made
+                    # the request decode-ready without any prefill work this
+                    # step) — and keeps export-ready requests out of the
+                    # local batch
+                    self._collect_handoffs()
+            view = SchedView(self.queue, self.bm, self.est, self.eng_cfg,
+                             self.now)
+            t_form = time.monotonic() if on else 0.0
+            plan = self.policy.form_batch(view)
+            if on:
+                # stamped tight around the policy's call: its attributes
+                # are gathered after the end
+                obs.record("sched.form_batch", t_form, time.monotonic(),
+                           entries=len(plan.entries),
+                           queued=len(self.queue), t_budget=plan.t_budget,
+                           t_c=self.est.t_c, reason=plan.idle_reason)
+            if not plan.entries:
+                # evictions can outlive a failed admission round: keep the
+                # pool consistent with the accounting before going idle,
+                # and use the idle gap to stage likely reloads
+                if plan.evictions:
+                    self._sync_pool_with_bm(plan)
+                self._offload_directives.clear()
+                with span("engine.prefetch") as pf:
+                    pf.set(groups=self._prefetch_reloads())
+                return None
+            if on:
+                for e in plan.entries:
+                    self._note_scheduled(e.req, t_step)
+            t0 = time.monotonic()
+            with span("engine.reload") as rl:
                 self._sync_pool_with_bm(plan)
-            self._offload_directives.clear()
-            self._prefetch_reloads()
-            return None
-        t0 = time.monotonic()
-        self._sync_pool_with_bm(plan)
+                step_reload = self._reload(plan)
+                rl.set(blocks=step_reload, evictions=len(plan.evictions))
 
-        # reload data for requests whose plan restored host blocks; prefer
-        # the background lane's pre-staged buffers (the H2D copy already
-        # landed), falling back to a synchronous batched copy
+            decode_entries = [e for e in plan.entries if not e.is_prefill]
+            prefill_entries = [e for e in plan.entries if e.is_prefill]
+            if on:
+                sp.set(rows=len(plan.entries),
+                       tokens=sum(e.n_tokens for e in prefill_entries))
+            emitted: list[Request] = []
+            if prefill_entries:
+                if self.packed_prefill:
+                    self._run_prefill_packed(prefill_entries, emitted)
+                else:
+                    self._run_prefill_fallback(prefill_entries, emitted)
+            if decode_entries:
+                if self.draft is not None:
+                    self._run_decode_spec(decode_entries, emitted)
+                else:
+                    self._run_decode(decode_entries, emitted)
+
+            latency = time.monotonic() - t0
+            if self._wall_epoch is not None:
+                self.now = max(self.now, time.monotonic() - self._wall_epoch)
+            else:
+                self.now += latency
+            self.stats.iterations += 1
+            self.stats.busy_s += latency
+            self._profile.append((plan.work_items(), latency))
+            if len(self._profile) >= self.refit_every:
+                with span("engine.refit") as rf:
+                    self._refit()
+                    rf.set(t_c=self.est.t_c)
+
+            with span("engine.release") as rs:
+                finished = [r for r in self.queue
+                            if r.phase == Phase.FINISHED]
+                for r in finished:
+                    self._release(r)
+                self.queue = [r for r in self.queue
+                              if r.phase != Phase.FINISHED]
+                if self.role == "prefill":
+                    # export every request whose prefill leg just completed
+                    # (the gather runs before the proactive-mirror dispatch
+                    # below, so the exported KV ships exactly once)
+                    self._collect_handoffs()
+                rs.set(requests=len(finished))
+            # all K/V written and finished requests released: snapshot and
+            # enqueue the proactive D2H mirrors the policy scheduled
+            # (released requests' directives drop out via their empty
+            # tables), then stage likely reloads
+            with span("engine.offloads") as of:
+                of.set(blocks=self._dispatch_offloads())
+            with span("engine.prefetch") as pf:
+                pf.set(groups=self._prefetch_reloads())
+            return {"emitted": emitted, "finished": finished,
+                    "latency": latency, "plan": plan}
+
+    def _note_scheduled(self, r: Request, t_step: float) -> None:
+        """A request in this step's plan: the first plan that holds it
+        ends its wait in the queue and starts its prefill."""
+        at = self._t_req.get(r.rid)
+        if at is not None and at[0] == QUEUED:
+            obs.record(QUEUED, at[1], t_step, rid=r.rid,
+                       hit=int(r.prefilled))
+            self._t_req[r.rid] = (PREFILL, t_step)
+
+    def _reload(self, plan: BatchPlan) -> int:
+        """Reload data for requests whose plan restored host blocks; prefer
+        the background lane's pre-staged buffers (the H2D copy already
+        landed), falling back to a synchronous batched copy.  Returns the
+        blocks restored."""
         step_reload, step_wait = 0, 0.0
         for e in plan.entries:
             s = self.bm.state(e.req)
@@ -788,63 +902,23 @@ class Engine:
                 self.stats.reload_blocks += n
                 step_reload += n
         self.stats.transfer_wait_s += step_wait
+        return step_reload
 
-        decode_entries = [e for e in plan.entries if not e.is_prefill]
-        prefill_entries = [e for e in plan.entries if e.is_prefill]
-        emitted: list[Request] = []
-        if prefill_entries:
-            if self.packed_prefill:
-                self._run_prefill_packed(prefill_entries, emitted)
-            else:
-                self._run_prefill_fallback(prefill_entries, emitted)
-        if decode_entries:
-            if self.draft is not None:
-                self._run_decode_spec(decode_entries, emitted)
-            else:
-                self._run_decode(decode_entries, emitted)
-
-        latency = time.monotonic() - t0
-        if self._wall_epoch is not None:
-            self.now = max(self.now, time.monotonic() - self._wall_epoch)
-        else:
-            self.now += latency
-        self.stats.iterations += 1
-        self.stats.batch_latencies.append(latency)
-        self._profile.append((plan.work_items(), latency))
-        if len(self._profile) >= self.refit_every:
-            self._refit()
-
-        finished = [r for r in self.queue if r.phase == Phase.FINISHED]
-        for r in finished:
-            self.bm.release(r)
-            self.pool.release(r.rid)
-            if self.draft is not None:
-                self.draft.drop(r.rid)
-            # drop all per-request transfer state: a late completion for
-            # this rid is caught by the dead-request guard in
-            # _drain_transfers (rid no longer in bm.table)
-            if self.worker is not None:
-                self.worker.invalidate(r.rid)
-            self._epoch.pop(r.rid, None)
-            self._seqs.pop(r.rid, None)
-            self._seq_fill.pop(r.rid, None)
-        self.queue = [r for r in self.queue if r.phase != Phase.FINISHED]
-        if self.role == "prefill":
-            # export every request whose prefill leg just completed (the
-            # gather runs before the proactive-mirror dispatch below, so
-            # the exported KV ships exactly once)
-            self._collect_handoffs()
-        # all K/V written and finished requests released: snapshot and
-        # enqueue the proactive D2H mirrors the policy scheduled (released
-        # requests' directives drop out via their empty tables), then
-        # stage likely reloads
-        self._dispatch_offloads()
-        self._prefetch_reloads()
-        return {"emitted": emitted, "finished": finished,
-                "latency": latency, "plan": plan,
-                "offload_blocks": offload_landed,
-                "reload_blocks": step_reload,
-                "transfer_wait": step_wait}
+    def _release(self, r: Request) -> None:
+        """Free a finished request's blocks and per-request state."""
+        self.bm.release(r)
+        self.pool.release(r.rid)
+        if self.draft is not None:
+            self.draft.drop(r.rid)
+        # drop all per-request transfer state: a late completion for this
+        # rid is caught by the dead-request guard in _drain_transfers (rid
+        # no longer in bm.table)
+        if self.worker is not None:
+            self.worker.invalidate(r.rid)
+        self._epoch.pop(r.rid, None)
+        self._seqs.pop(r.rid, None)
+        self._seq_fill.pop(r.rid, None)
+        self._t_req.pop(r.rid, None)
 
     # ------------------------------------------------------------------
     # decode execution
@@ -857,38 +931,41 @@ class Engine:
         comes back to the host."""
         rids = [e.req.rid for e in decode_entries]
         nb = len(decode_entries)
-        for e in decode_entries:
-            self.pool.ensure_capacity(e.req.rid, e.l_kv + 1)
-            if self.pool.ensure_writable(e.req.rid,
-                                         e.l_kv // self.pool.block_size):
-                self.bm.note_fork(e.req)
-                self.stats.cow_forks += 1
-        maxp = max(len(self.pool.tables[r]) for r in rids)
-        if self.fused_decode:
-            b_b = model_exec.seg_bucket(nb)
-            maxp_b = model_exec.table_bucket(maxp)
+        with obs.span("model_exec.prep", kind="decode"):
+            for e in decode_entries:
+                self.pool.ensure_capacity(e.req.rid, e.l_kv + 1)
+                if self.pool.ensure_writable(e.req.rid,
+                                             e.l_kv // self.pool.block_size):
+                    self.bm.note_fork(e.req)
+                    self.stats.cow_forks += 1
+            maxp = max(len(self.pool.tables[r]) for r in rids)
+            # fused: padded to shape buckets; otherwise the exact batch
+            b_b = model_exec.seg_bucket(nb) if self.fused_decode else nb
+            if self.fused_decode:
+                maxp = model_exec.table_bucket(maxp)
             lens = np.zeros(b_b, np.int32)
             lens[:nb] = [e.l_kv for e in decode_entries]
             last = np.zeros(b_b, np.int32)
             last[:nb] = [self._last_token(e.req) for e in decode_entries]
-            table = self.pool.table_array(rids, maxp=maxp_b, rows=b_b)
-            toks, self.pool.kv = model_exec.decode_step(
-                self.cfg, self.params, self.pool.kv, self._dev(last), table,
-                self._dev(lens))
+            table = self.pool.table_rows(rids, maxp=maxp, rows=b_b)
+        with obs.span("model_exec.upload", kind="decode"):
+            last, table, lens = (self._dev(a) for a in (last, table, lens))
+        with obs.span("model_exec.launch", kind="decode", rows=nb,
+                      tokens=nb):
+            if self.fused_decode:
+                toks, self.pool.kv = model_exec.decode_step(
+                    self.cfg, self.params, self.pool.kv, last, table, lens)
+            else:
+                logits, self.pool.kv = model_exec.decode_batch(
+                    self.cfg, self.params, self.pool.kv, last, table, lens)
+                toks = logits.argmax(-1)
+        with obs.span("model_exec.fetch", kind="decode"):
             nxt = toks.cpu().numpy()[:nb]
-        else:
-            lens = np.array([e.l_kv for e in decode_entries], np.int32)
-            table = self.pool.table_array(rids, maxp=maxp)
-            last = np.array([self._last_token(e.req)
-                             for e in decode_entries], np.int32)
-            logits, self.pool.kv = model_exec.decode_batch(
-                self.cfg, self.params, self.pool.kv, self._dev(last), table,
-                self._dev(lens))
-            nxt = logits.argmax(-1).cpu().numpy()
         self.stats.decode_launches += 1
         self.stats.host_syncs += 1
-        for e, tok in zip(decode_entries, nxt):
-            self._emit(e.req, int(tok), emitted)
+        with obs.span("engine.emit", kind="decode"):
+            for e, tok in zip(decode_entries, nxt):
+                self._emit(e.req, int(tok), emitted)
 
     def _run_decode_spec(self, decode_entries: list, emitted: list) -> None:
         """Speculative decode: the draft proposes up to ``e.depth`` tokens
@@ -1020,59 +1097,65 @@ class Engine:
         into one flat token stream and executed in a single bucketed call —
         and each segment stages only the blocks it needs."""
         bs = self.pool.block_size
-        for e in entries:
-            self._prepare_prefill(e)
         n_seg = len(entries)
-        sq = model_exec.chunk_bucket(max(e.n_tokens for e in entries))
-        smax = model_exec.chunk_bucket(
-            max(e.l_kv + e.n_tokens for e in entries))
-        smax = -(-smax // bs) * bs
-        maxp = smax // bs
         total = sum(e.n_tokens for e in entries)
-        t_b = model_exec.flat_bucket(total)
-        s_b = model_exec.seg_bucket(n_seg)
+        with obs.span("model_exec.prep", kind="prefill"):
+            for e in entries:
+                self._prepare_prefill(e)
+            sq = model_exec.chunk_bucket(max(e.n_tokens for e in entries))
+            smax = model_exec.chunk_bucket(
+                max(e.l_kv + e.n_tokens for e in entries))
+            smax = -(-smax // bs) * bs
+            maxp = smax // bs
+            t_b = model_exec.flat_bucket(total)
+            s_b = model_exec.seg_bucket(n_seg)
 
-        tokens = np.zeros((1, t_b), np.int32)
-        positions = np.zeros((1, t_b), np.int32)
-        q_rows = np.full((t_b,), s_b, np.int32)   # padding -> extra row
-        q_cols = np.zeros((t_b,), np.int32)
-        sblocks = np.zeros((t_b,), np.int32)      # padding -> null block 0
-        sslots = np.zeros((t_b,), np.int32)
-        tables = np.zeros((s_b, maxp), np.int32)
-        ctx_lens = np.zeros((s_b,), np.int32)
-        last_idx = np.zeros((s_b,), np.int32)
-        off = 0
-        for i, e in enumerate(entries):
-            r, ctx, n = e.req, e.l_kv, e.n_tokens
-            seq = self._seq_view(r)
-            tokens[0, off:off + n] = seq[ctx:ctx + n]
-            pos = np.arange(ctx, ctx + n, dtype=np.int32)
-            positions[0, off:off + n] = pos
-            q_rows[off:off + n] = i
-            q_cols[off:off + n] = np.arange(n, dtype=np.int32)
-            t = np.asarray(self.pool.tables[r.rid], np.int32)
-            sblocks[off:off + n] = t[pos // bs]
-            sslots[off:off + n] = pos % bs
-            k = min(len(t), maxp)
-            tables[i, :k] = t[:k]
-            ctx_lens[i] = ctx
-            last_idx[i] = off + n - 1
-            off += n
+            tokens = np.zeros((1, t_b), np.int32)
+            positions = np.zeros((1, t_b), np.int32)
+            q_rows = np.full((t_b,), s_b, np.int32)  # padding -> extra row
+            q_cols = np.zeros((t_b,), np.int32)
+            sblocks = np.zeros((t_b,), np.int32)     # padding -> null block
+            sslots = np.zeros((t_b,), np.int32)
+            tables = np.zeros((s_b, maxp), np.int32)
+            ctx_lens = np.zeros((s_b,), np.int32)
+            last_idx = np.zeros((s_b,), np.int32)
+            off = 0
+            for i, e in enumerate(entries):
+                r, ctx, n = e.req, e.l_kv, e.n_tokens
+                seq = self._seq_view(r)
+                tokens[0, off:off + n] = seq[ctx:ctx + n]
+                pos = np.arange(ctx, ctx + n, dtype=np.int32)
+                positions[0, off:off + n] = pos
+                q_rows[off:off + n] = i
+                q_cols[off:off + n] = np.arange(n, dtype=np.int32)
+                t = np.asarray(self.pool.tables[r.rid], np.int32)
+                sblocks[off:off + n] = t[pos // bs]
+                sslots[off:off + n] = pos % bs
+                k = min(len(t), maxp)
+                tables[i, :k] = t[:k]
+                ctx_lens[i] = ctx
+                last_idx[i] = off + n - 1
+                off += n
 
-        d = self._dev
-        logits, self.pool.kv = model_exec.prefill_packed(
-            self.cfg, self.params, self.pool.kv, d(tokens), d(positions),
-            d(q_rows), d(q_cols), d(sblocks), d(sslots), d(tables),
-            d(ctx_lens), d(last_idx), smax, sq)
+        with obs.span("model_exec.upload", kind="prefill"):
+            inputs = [self._dev(a) for a in (
+                tokens, positions, q_rows, q_cols, sblocks, sslots, tables,
+                ctx_lens, last_idx)]
+        with obs.span("model_exec.launch", kind="prefill", rows=n_seg,
+                      tokens=total):
+            logits, self.pool.kv = model_exec.prefill_packed(
+                self.cfg, self.params, self.pool.kv, *inputs, smax, sq)
         self.stats.packed_prefill_calls += 1
         self.stats.host_syncs += 1
-        nxt = logits.argmax(-1).cpu().numpy()
-        for i, e in enumerate(entries):
-            r = e.req
-            self.stats.prefill_tokens += e.n_tokens
-            if e.l_kv + e.n_tokens >= r.prompt_len and r.generated == 0:
-                self._finish_prefill(e, int(nxt[i]), emitted)
-            # recompute completion emits nothing (next decode pass does)
+        with obs.span("model_exec.fetch", kind="prefill"):
+            nxt = logits.argmax(-1).cpu().numpy()
+        with obs.span("engine.emit", kind="prefill"):
+            for i, e in enumerate(entries):
+                r = e.req
+                self.stats.prefill_tokens += e.n_tokens
+                if e.l_kv + e.n_tokens >= r.prompt_len and r.generated == 0:
+                    self._finish_prefill(e, int(nxt[i]), emitted)
+                # recompute completion emits nothing (next decode pass does)
 
     def _run_prefill_fallback(self, entries: list, emitted: list) -> None:
         """Per-request chunked prefill: one ``prefill_chunk`` call per
@@ -1119,8 +1202,20 @@ class Engine:
         r.emit_token(self.now)
         self.stats.tokens_out += 1
         emitted.append(r)
+        last = r.phase == Phase.FINISHED
+        at = self._t_req.get(r.rid)
+        if at is not None and (last or at[0] == PREFILL):
+            # the first token ends the prefill span, the last the decode
+            t = time.monotonic()
+            if at[0] == PREFILL:
+                obs.record(PREFILL, at[1], t, rid=r.rid)
+                at = (DECODE, t)
+                self._t_req[r.rid] = at
+            if last and at[0] == DECODE:
+                obs.record(DECODE, at[1], t, rid=r.rid)
+                del self._t_req[r.rid]
         if self.on_token is not None:
-            self.on_token(r, tok, first, r.phase == Phase.FINISHED)
+            self.on_token(r, tok, first, last)
 
     def _refit(self) -> None:
         try:
@@ -1171,6 +1266,7 @@ class Engine:
             self.pool.release(r.rid)
             if self.draft is not None:
                 self.draft.drop(r.rid)
+            self._t_req.pop(r.rid, None)
             r.instance = None
         self.queue.clear()
         # handoff payloads in flight or awaiting pickup die with the
@@ -1231,7 +1327,9 @@ class EngineDriver:
     # -- submission (any thread) ---------------------------------------
     def submit(self, req: Request, prompt_tokens,
                prior_outputs: Optional[list] = None) -> None:
-        self.inbox.put(("req", req, prompt_tokens, prior_outputs))
+        self.inbox.put(("req", req, prompt_tokens, prior_outputs,
+                        time.monotonic() if obs.recorder().enabled
+                        else None))
         self._idle.clear()
 
     def submit_handoff(self, payload: HandoffPayload) -> None:
@@ -1313,43 +1411,56 @@ class EngineDriver:
     def _loop(self) -> None:
         eng = self.engine
         while not self._stop.is_set():
-            drained = False
-            while True:
-                try:
-                    item = self.inbox.get_nowait()
-                except queue.Empty:
-                    break
-                if item[0] == "handoff":
-                    payload = item[1]
-                    if eng.import_handoff(payload):
-                        self.sink(HandoffAdopted(self.iid, payload))
-                    else:
-                        self.sink(HandoffDropped(self.iid, payload))
-                else:
-                    _, req, prompt, prior = item
-                    eng.add_request(req, prompt, prior_outputs=prior)
-                    self._awaiting_first.add(req.rid)
-                drained = True
+            drained = not self.inbox.empty()
+            if drained:
+                with obs.span("driver.inbox"):
+                    self._drain_inbox()
             res = eng.step() if eng.alive else None
-            for payload in eng.take_handoffs():
-                payload.src_iid = self.iid
-                self.sink(HandoffEvent(self.iid, payload))
+            handoffs = eng.take_handoffs()
+            if handoffs:
+                with obs.span("driver.events"):
+                    for payload in handoffs:
+                        payload.src_iid = self.iid
+                        self.sink(HandoffEvent(self.iid, payload))
             if res is None:
-                if not drained and not eng.has_work():
+                held = drained or eng.has_work()
+                if not held:
                     self._idle.set()
                 # park until new work or shutdown (also avoids a hot spin
-                # when queued work is temporarily unschedulable)
-                self._stop.wait(self.idle_wait)
+                # when queued work is temporarily unschedulable); an idle
+                # driver's parks are not recorded
+                with (obs.span if held else obs.quiet)("driver.park"):
+                    self._stop.wait(self.idle_wait)
                 continue
             self._idle.clear()
             first_done, self._first_done = self._first_done, []
-            self.sink(StepEvent(
-                iid=self.iid, free_blocks=eng.bm.free_blocks,
-                latency=res["latency"], est_time=res["plan"].est_time,
-                prefill_done=tuple(first_done),
-                finished=tuple(r.rid for r in res["finished"]),
-                offload_blocks=res.get("offload_blocks", 0),
-                reload_blocks=res.get("reload_blocks", 0),
-                transfer_wait=res.get("transfer_wait", 0.0)))
+            with obs.span("driver.events"):
+                self.sink(StepEvent(
+                    iid=self.iid, free_blocks=eng.bm.free_blocks,
+                    latency=res["latency"], est_time=res["plan"].est_time,
+                    prefill_done=tuple(first_done),
+                    finished=tuple(r.rid for r in res["finished"])))
             if not eng.has_work() and self.inbox.empty():
                 self._idle.set()
+
+    def _drain_inbox(self) -> None:
+        """Move every submission waiting in the inbox into the engine."""
+        eng = self.engine
+        while True:
+            try:
+                item = self.inbox.get_nowait()
+            except queue.Empty:
+                return
+            if item[0] == "handoff":
+                payload = item[1]
+                if eng.import_handoff(payload):
+                    self.sink(HandoffAdopted(self.iid, payload))
+                else:
+                    self.sink(HandoffDropped(self.iid, payload))
+            else:
+                _, req, prompt, prior, t_submit = item
+                if t_submit is not None:
+                    obs.record("request.inbox", t_submit, time.monotonic(),
+                               rid=req.rid)
+                eng.add_request(req, prompt, prior_outputs=prior)
+                self._awaiting_first.add(req.rid)

@@ -365,9 +365,9 @@ class PagedKVPool:
             self.decref(b)
         self.tier.drop(rid)
 
-    def table_array(self, rids: list[int], maxp: Optional[int] = None,
-                    rows: Optional[int] = None) -> torch.Tensor:
-        """Padded block-table batch as an int32 device tensor.  ``rows`` >
+    def table_rows(self, rids: list[int], maxp: Optional[int] = None,
+                   rows: Optional[int] = None) -> np.ndarray:
+        """Padded block-table batch as an int32 host array.  ``rows`` >
         len(rids) appends all-zero rows (the fused decode path pads the
         batch to a shape bucket; zero rows address the null block 0)."""
         maxp = maxp or max(len(self.tables[r]) for r in rids)
@@ -375,7 +375,13 @@ class PagedKVPool:
         for i, r in enumerate(rids):
             t = self.tables[r]
             out[i, :len(t)] = t
-        return torch.from_numpy(out).to(self.device)
+        return out
+
+    def table_array(self, rids: list[int], maxp: Optional[int] = None,
+                    rows: Optional[int] = None) -> torch.Tensor:
+        """``table_rows`` as an int32 device tensor."""
+        return torch.from_numpy(self.table_rows(rids, maxp, rows)).to(
+            self.device)
 
     # --- sharing / copy-on-write -----------------------------------------
     def incref(self, block: int) -> None:

@@ -43,6 +43,11 @@ are discarded instead of corrupting the accounting.  A copy that raises
 is reported as ``ok=False``: the engine counts it and copies
 synchronously instead.
 
+Each copy is recorded as a ``lanes.d2h`` or ``lanes.h2d`` span
+(``repro_torch.obs``) over the time it measures, its parent the engine's
+span that enqueued it; the engine counts the seconds and blocks of each
+direction (``EngineStats.d2h_copy_s`` and the like).
+
 On the CPU (tests) the same jobs run with plain tensor copies and no
 streams.
 """
@@ -58,6 +63,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import obs
 from ..kernels import ops
 from ..models.model import resolve_device
 
@@ -129,7 +135,8 @@ class TransferWorker:
             for t in _tensors(gathered):
                 t.record_stream(self._stream)
         self._ensure_started()
-        self._jobs.put(("d2h", rid, epoch, logical, gathered, ready))
+        self._jobs.put(("d2h", rid, epoch, logical, gathered, ready,
+                        obs.current()))
 
     def prefetch(self, rid: int, epoch: int,
                  host_blocks: list[np.ndarray]) -> bool:
@@ -142,7 +149,7 @@ class TransferWorker:
                 return False
             self._inflight.add(rid)
         self._ensure_started()
-        self._jobs.put(("h2d", rid, epoch, list(host_blocks)))
+        self._jobs.put(("h2d", rid, epoch, list(host_blocks), obs.current()))
         return True
 
     def take_staged(self, rid: int, epoch: int):
@@ -265,7 +272,7 @@ class TransferWorker:
             self._stream.synchronize()
 
     def _execute(self, job: tuple) -> None:
-        kind, rid, epoch = job[0], job[1], job[2]
+        kind, rid, epoch, parent = job[0], job[1], job[2], job[-1]
         if kind == "d2h":
             logical, gathered, ready = job[3], job[4], job[5]
             if ready is not None:
@@ -276,6 +283,8 @@ class TransferWorker:
             pinned = [self._to_pinned(t) for t in _tensors(gathered)]
             self._sync()
             dt = time.monotonic() - t0
+            obs.record("lanes.d2h", t0, t0 + dt, rid=rid, parent=parent,
+                       quantized=int(quant))
             host = [self._unpin(t) for t in pinned]
             if quant:
                 # quantized-on-device snapshot: the wire carried int8 vals
@@ -310,6 +319,8 @@ class TransferWorker:
             ready.record(self._stream)
         self._sync()
         dt = time.monotonic() - t0
+        obs.record("lanes.h2d", t0, t0 + dt, rid=rid, parent=parent,
+                   quantized=int(quant))
         done = TransferDone("h2d", rid, epoch, len(host_blocks), dt,
                             quantized=quant)
         with self._lock:

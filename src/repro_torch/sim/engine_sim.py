@@ -87,7 +87,7 @@ class EngineSim:
         self.iterations = 0
         self.prefill_tokens = 0    # prompt/recompute tokens actually computed
         self.copy_blocks = 0       # H2D reload blocks consumed (§4.3 lane;
-        # the real engine surfaces the same signal via StepEvent.reload_blocks)
+        # the real engine counts the same signal in EngineStats.reload_blocks)
         self.batch_log: list[tuple[float, int, float]] = []  # (t, n, latency)
         # speculative decoding mirror (cfg.spec_k > 0): per-entry depth
         # comes from the policy's BatchPlan; acceptance is drawn from the

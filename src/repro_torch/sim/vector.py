@@ -174,8 +174,8 @@ class VectorSlideBatching(SlideBatching):
                 # reload coordination: reference path (consumes copy budget)
                 if protect is None:
                     protect = set(admitted)
-                entry, t, used_copy = self._admit(view, r, t_left, None, 0,
-                                                  copy_budget, protect, plan)
+                entry, t, used_copy, _ = self._admit(
+                    view, r, t_left, None, 0, copy_budget, protect, plan)
                 copy_budget -= used_copy
                 plan.copy_blocks += used_copy
                 if entry is None:
