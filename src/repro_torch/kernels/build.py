@@ -11,7 +11,10 @@ first at the same time (the engine and the transfer worker) build once.
 A failed build raises; there is no fallback.
 
 ``count_launch`` / ``reset_launches`` keep each wrapper's launch counter
-under one lock, so launches from both threads are counted exactly.
+under one lock, so launches from both threads are counted exactly.  A
+launch issued while its thread captures a CUDA graph (``recording()``)
+runs nothing: it is noted in the recording instead, and
+``add_launches`` counts the recording once per replay.
 """
 from __future__ import annotations
 
@@ -23,6 +26,8 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from collections import Counter
+from contextlib import contextmanager
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -63,6 +68,8 @@ SIGNATURES = {
 }
 _BUILD_LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()
+# per thread: the Counter of the capture under way (``recording()``)
+_CAPTURE = threading.local()
 
 
 def sources() -> list[Path]:
@@ -157,9 +164,33 @@ def check(err: int, what: str) -> None:
 
 
 def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches`` (a kernel launched)."""
+    """Add one to ``wrapper.launches`` (a kernel launched), or to this
+    thread's recording while it captures a graph."""
+    rec = getattr(_CAPTURE, "rec", None)
+    if rec is not None:
+        rec[wrapper] += 1
+        return
     with _COUNT_LOCK:
         wrapper.launches += 1
+
+
+@contextmanager
+def recording():
+    """The launches this thread issues inside the block, as a Counter of
+    wrapper -> launches, kept out of the wrappers' counters (a graph's
+    capture records its kernels; its replays run them)."""
+    _CAPTURE.rec = rec = Counter()
+    try:
+        yield rec
+    finally:
+        _CAPTURE.rec = None
+
+
+def add_launches(rec: Counter) -> None:
+    """Count a recording's launches once (one replay of its graph)."""
+    with _COUNT_LOCK:
+        for wrapper, n in rec.items():
+            wrapper.launches += n
 
 
 def reset_launches(wrappers) -> None:

@@ -158,6 +158,7 @@ def _summary(engines: list, reqs: list, wall_s: float, arrived: dict,
         **{k: total(k) for k in (
             "iterations", "evictions", "reload_blocks", "cache_hit_tokens",
             "cache_insert_blocks", "cow_forks", "decode_launches",
+            "decode_graph_captures", "decode_graph_replays",
             "packed_prefill_calls", "host_syncs", "prefill_chunk_calls",
             "spec_proposed", "spec_accepted", "spec_rejected",
             "draft_launches")},
@@ -566,8 +567,10 @@ class FrontendResult:
         out["orphans"] = len(self.orphans)
         for key in ("iterations", "tokens_out", "prefill_tokens",
                     "evictions", "reload_blocks", "cache_hit_tokens",
-                    "decode_launches", "packed_prefill_calls", "host_syncs",
-                    "offload_blocks", "transfer_failures", "handoffs_out",
+                    "decode_launches", "decode_graph_captures",
+                    "decode_graph_replays", "packed_prefill_calls",
+                    "host_syncs", "offload_blocks", "transfer_failures",
+                    "handoffs_out",
                     "handoff_blocks_out", "handoff_bytes_out", "handoffs_in",
                     "handoff_blocks_in", "handoff_bytes_in", "d2h_copy_s",
                     "d2h_copy_blocks", "h2d_copy_s", "h2d_copy_blocks"):

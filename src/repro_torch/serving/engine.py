@@ -22,7 +22,9 @@ One ``Engine`` = one model replica.  Each iteration:
      ``prefill_chunk`` call per request) — greedy-sampling the first token
      when a prompt completes; decode entries run as one fused
      ``decode_step`` (``fused_decode=False``: ``decode_batch`` on the
-     unpadded batch, which returns the logits).  With ``spec_draft`` and ``spec_k > 0`` a
+     unpadded batch, which returns the logits); on the card the fused
+     step is captured into one CUDA graph per batch bucket and replayed
+     (``model_exec.DecodeGraphs``).  With ``spec_draft`` and ``spec_k > 0`` a
      ``DraftRunner`` (``serving/spec.py``) proposes up to the planned depth
      per request and ONE ``verify_step`` scores every (request, draft
      position) row; greedy acceptance keeps each stream equal to plain
@@ -207,6 +209,9 @@ class EngineStats:
     refit_failures: int = 0        # online estimator refits that failed
     decode_launches: int = 0       # decode_step calls (one per step with
     # decode work)
+    decode_graph_captures: int = 0  # fused decode steps run eagerly and
+    # then captured into their batch bucket's CUDA graph
+    decode_graph_replays: int = 0  # fused decode steps run as one replay
     host_bytes: int = 0            # current hot host-tier bytes (<= budget)
     spill_blocks: int = 0          # cumulative prefix-cache blocks spilled
     # to the host tier instead of destroyed (tiered KV cache)
@@ -316,6 +321,16 @@ class Engine:
                 dcfg, dparams, num_blocks=spec_draft_blocks or num_blocks,
                 block_size=block_size, max_ctx=max_ctx,
                 dtype=params["embed"].dtype, device=self.device)
+        # the fused decode on the card: one CUDA graph per batch bucket,
+        # at one table width that starts at max_ctx's blocks (the draft
+        # and the verify step stay eager, as does every CPU engine)
+        self.graphs: Optional[model_exec.DecodeGraphs] = (
+            model_exec.DecodeGraphs(
+                cfg, params, model_exec.table_bucket(-(-max_ctx
+                                                       // block_size)),
+                self.device)
+            if fused_decode and self.draft is None
+            and self.device.type == "cuda" else None)
         self.worker: Optional[TransferWorker] = (
             TransferWorker(device=self.device) if overlap_transfers
             else None)
@@ -812,11 +827,12 @@ class Engine:
                     self._run_prefill_packed(prefill_entries, emitted)
                 else:
                     self._run_prefill_fallback(prefill_entries, emitted)
+            t_capture = 0.0
             if decode_entries:
                 if self.draft is not None:
                     self._run_decode_spec(decode_entries, emitted)
                 else:
-                    self._run_decode(decode_entries, emitted)
+                    t_capture = self._run_decode(decode_entries, emitted)
 
             latency = time.monotonic() - t0
             if self._wall_epoch is not None:
@@ -825,7 +841,8 @@ class Engine:
                 self.now += latency
             self.stats.iterations += 1
             self.stats.busy_s += latency
-            self._profile.append((plan.work_items(), latency))
+            # a graph's capture is set-up, not the batch's latency
+            self._profile.append((plan.work_items(), latency - t_capture))
             if len(self._profile) >= self.refit_every:
                 with span("engine.refit") as rf:
                     self._refit()
@@ -923,14 +940,18 @@ class Engine:
     # ------------------------------------------------------------------
     # decode execution
     # ------------------------------------------------------------------
-    def _run_decode(self, decode_entries: list, emitted: list) -> None:
+    def _run_decode(self, decode_entries: list, emitted: list) -> float:
         """Plain decode: one token per request in one launch.  Fused: the
         batch and table padded to shape buckets (extra rows: token 0,
-        len 0, null-block table); otherwise ``decode_batch`` on the exact
-        batch returns the (B, V) logits.  Either way only the (B,) argmax
-        comes back to the host."""
+        len 0, null-block table); on the card the graph of the batch
+        bucket replays at the graphs' table width, and a bucket without
+        one runs eagerly and is captured.  Otherwise ``decode_batch`` on
+        the exact batch returns the (B, V) logits.  Either way only the
+        (B,) argmax comes back to the host.  Returns the seconds spent
+        capturing."""
         rids = [e.req.rid for e in decode_entries]
         nb = len(decode_entries)
+        graphs = self.graphs
         with obs.span("model_exec.prep", kind="decode"):
             for e in decode_entries:
                 self.pool.ensure_capacity(e.req.rid, e.l_kv + 1)
@@ -941,7 +962,9 @@ class Engine:
             maxp = max(len(self.pool.tables[r]) for r in rids)
             # fused: padded to shape buckets; otherwise the exact batch
             b_b = model_exec.seg_bucket(nb) if self.fused_decode else nb
-            if self.fused_decode:
+            if graphs is not None:
+                maxp = graphs.fit(maxp)
+            elif self.fused_decode:
                 maxp = model_exec.table_bucket(maxp)
             lens = np.zeros(b_b, np.int32)
             lens[:nb] = [e.l_kv for e in decode_entries]
@@ -949,16 +972,35 @@ class Engine:
             last[:nb] = [self._last_token(e.req) for e in decode_entries]
             table = self.pool.table_rows(rids, maxp=maxp, rows=b_b)
         with obs.span("model_exec.upload", kind="decode"):
-            last, table, lens = (self._dev(a) for a in (last, table, lens))
+            if graphs is not None:
+                graphs.upload(last, table, lens)
+            else:
+                last, table, lens = (self._dev(a)
+                                     for a in (last, table, lens))
+        replay = graphs is not None and graphs.ready(b_b, self.pool.kv)
         with obs.span("model_exec.launch", kind="decode", rows=nb,
-                      tokens=nb):
-            if self.fused_decode:
+                      tokens=nb, graph=int(replay)):
+            if replay:
+                toks = graphs.replay(b_b)
+            elif graphs is not None:
+                toks = graphs.warm(b_b, self.pool.kv)
+            elif self.fused_decode:
                 toks, self.pool.kv = model_exec.decode_step(
                     self.cfg, self.params, self.pool.kv, last, table, lens)
             else:
                 logits, self.pool.kv = model_exec.decode_batch(
                     self.cfg, self.params, self.pool.kv, last, table, lens)
                 toks = logits.argmax(-1)
+        t_capture = 0.0
+        if replay:
+            self.stats.decode_graph_replays += 1
+        elif graphs is not None:
+            # captured while the card runs the eager step
+            t0 = time.monotonic()
+            with obs.span("model_exec.capture", rows=b_b, width=maxp):
+                graphs.capture(b_b, self.pool.kv)
+            t_capture = time.monotonic() - t0
+            self.stats.decode_graph_captures += 1
         with obs.span("model_exec.fetch", kind="decode"):
             nxt = toks.cpu().numpy()[:nb]
         self.stats.decode_launches += 1
@@ -966,6 +1008,7 @@ class Engine:
         with obs.span("engine.emit", kind="decode"):
             for e, tok in zip(decode_entries, nxt):
                 self._emit(e.req, int(tok), emitted)
+        return t_capture
 
     def _run_decode_spec(self, decode_entries: list, emitted: list) -> None:
         """Speculative decode: the draft proposes up to ``e.depth`` tokens

@@ -15,6 +15,8 @@
 * ``prefill_chunk``  — one request's chunk (the draft's prompt ingest and
   the engine's ``packed_prefill=False`` path): stage the request's blocks
   contiguously and run the chunked prefill kernel.
+* ``DecodeGraphs``   — ``decode_step`` captured into one CUDA graph per
+  batch bucket and replayed: the engine's fused decode on the card.
 
 The reference scans over stacked layers inside ``jax.jit`` with the pool
 donated; here a Python loop over layers updates the pool tensor IN PLACE
@@ -23,12 +25,19 @@ functional ``.at[].set`` with donation), so the functions return the same
 pool object they were given.  The shape buckets below are copied
 unchanged: eager PyTorch needs no compile cache, but the buckets fix the
 padding the kernels see (pad rows write null block 0, pad queries go to
-the extra row ``S``), and a later CUDA-graph cache will key on them.
+the extra row ``S``), and ``DecodeGraphs`` keys its graphs on the batch
+bucket.
 """
 from __future__ import annotations
 
+import threading
+from collections import Counter
+from typing import Optional
+
+import numpy as np
 import torch
 
+from ..kernels import build
 from ..kernels.ops import (chunked_prefill_attention,
                            packed_prefill_attention, packed_verify_attention,
                            paged_decode_attention)
@@ -132,6 +141,146 @@ def decode_step(cfg: ArchConfig, params: dict, pool_kv: torch.Tensor,
     Returns ((B,) int32 tokens, the updated pool — the same tensor)."""
     logits = _decode_forward(cfg, params, pool_kv, tokens, tables, lens)
     return logits.argmax(-1).to(torch.int32), pool_kv
+
+
+def grown_width(width: int, widest: int) -> int:
+    """``DecodeGraphs``' table width after a batch whose widest table row
+    holds ``widest`` blocks: ``width`` while the row fits, else the row's
+    ``table_bucket``.  It only grows."""
+    return width if widest <= width else table_bucket(widest)
+
+
+# one capture under way in the process at a time (replicas on one card
+# capture from their own driver threads)
+_CAPTURE_LOCK = threading.Lock()
+
+
+class _Bucket:
+    """One batch bucket's static input (tokens (b,) | lengths (b,) |
+    table (b, W) int32, in one device buffer and its pinned host copy)
+    and its graph."""
+    __slots__ = ("host", "dev", "graph", "out", "launches", "kv_ptr")
+
+    def __init__(self, n: int, device: torch.device):
+        self.host = torch.empty(n, dtype=torch.int32, pin_memory=True)
+        self.dev = torch.empty(n, dtype=torch.int32, device=device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.out: Optional[torch.Tensor] = None
+        self.launches: Counter = Counter()
+        self.kv_ptr = 0
+
+
+class DecodeGraphs:
+    """``decode_step`` captured into CUDA graphs and replayed: one graph
+    per batch bucket (``seg_bucket``), all at one table width, so a step
+    is one graph launch instead of a Python walk over the layers.
+
+    * Width: ``fit`` keeps it until a batch's widest table row passes it,
+      then moves it to that row's ``table_bucket`` (``grown_width``) and
+      drops every graph.  The decode kernel reads a row's table only up
+      to ceil(len / page), so a wider table changes neither its work nor
+      its bits.
+    * Inputs: ``upload`` writes a step's tokens, table and lengths into
+      its bucket's pinned host buffer and copies it to the bucket's
+      static device buffer in one transfer; the graph reads that buffer
+      and writes its static (b,) int32 tokens.  The caller fetches the
+      tokens before the next upload (the copy reads the pinned buffer
+      asynchronously).
+    * Capture: a bucket's first step runs eagerly on a side stream
+      (``warm``): that run is the step itself, and it sets the kernels'
+      shared-memory limits and runs cuBLAS's heuristics.  ``capture``
+      then records the same call on that stream in thread-local mode
+      (another thread, such as the transfer lanes' worker, may go on
+      issuing copies and querying events), into one memory pool that
+      every bucket shares: replays are serial on the caller's stream.
+      A graph holds the pool tensor's address; at another address the
+      bucket is captured again.  A width change takes a new memory pool.
+    * Launch counts: the kernels a capture records are counted once per
+      replay (``build.recording``), so ``ops.launch_counts()`` stays
+      exact.
+    """
+
+    def __init__(self, cfg: ArchConfig, params: dict, width: int,
+                 device):
+        self.cfg, self.params, self.width = cfg, params, width
+        self.device = torch.device(device)
+        self.stream = torch.cuda.Stream(self.device)
+        self.mempool = torch.cuda.graph_pool_handle()
+        self._buckets: dict[int, _Bucket] = {}
+
+    def fit(self, widest: int) -> int:
+        """The table width for a batch whose widest row holds ``widest``
+        blocks; the graphs are dropped when it grows."""
+        width = grown_width(self.width, widest)
+        if width != self.width:
+            self.width = width
+            self._buckets.clear()
+            # a pool whose graphs are all gone cannot take a capture again
+            self.mempool = torch.cuda.graph_pool_handle()
+        return width
+
+    def upload(self, tokens: np.ndarray, table: np.ndarray,
+               lens: np.ndarray) -> None:
+        """tokens, lens: (b,) int32 host arrays of a batch bucket b;
+        table: (b, width) int32."""
+        b = len(tokens)
+        if table.shape != (b, self.width):
+            raise ValueError(f"table {table.shape} is not ({b}, "
+                             f"{self.width})")
+        bk = self._buckets.get(b)
+        if bk is None:
+            bk = self._buckets[b] = _Bucket(b * (2 + self.width),
+                                            self.device)
+        h = bk.host.numpy()
+        h[:b] = tokens
+        h[b:2 * b] = lens
+        h[2 * b:] = table.reshape(-1)
+        bk.dev.copy_(bk.host, non_blocking=True)
+
+    def _inputs(self, b: int) -> tuple:
+        dev = self._buckets[b].dev
+        return dev[:b], dev[2 * b:].view(b, self.width), dev[b:2 * b]
+
+    def ready(self, b: int, pool_kv: torch.Tensor) -> bool:
+        """Bucket ``b`` has a graph over this pool tensor."""
+        bk = self._buckets[b]
+        return bk.graph is not None and bk.kv_ptr == pool_kv.data_ptr()
+
+    def replay(self, b: int) -> torch.Tensor:
+        """One replay on the current stream; its (b,) int32 tokens."""
+        bk = self._buckets[b]
+        bk.graph.replay()
+        build.add_launches(bk.launches)
+        return bk.out
+
+    def warm(self, b: int, pool_kv: torch.Tensor) -> torch.Tensor:
+        """The step run eagerly on the side stream, ordered after the
+        upload and before whatever the current stream does next."""
+        cur = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            toks, _ = decode_step(self.cfg, self.params, pool_kv,
+                                  *self._inputs(b))
+        cur.wait_stream(self.stream)
+        return toks
+
+    def capture(self, b: int, pool_kv: torch.Tensor) -> None:
+        """Record bucket ``b``'s step into its graph (after ``warm``);
+        nothing runs.  A graph it replaces goes only after the capture,
+        which keeps the shared pool alive."""
+        bk = self._buckets[b]
+        graph = torch.cuda.CUDAGraph()
+        with _CAPTURE_LOCK, torch.cuda.stream(self.stream), \
+                build.recording() as launches:
+            graph.capture_begin(pool=self.mempool,
+                                capture_error_mode="thread_local")
+            try:
+                out, _ = decode_step(self.cfg, self.params, pool_kv,
+                                     *self._inputs(b))
+            finally:
+                graph.capture_end()
+        bk.graph, bk.out, bk.launches = graph, out, launches
+        bk.kv_ptr = pool_kv.data_ptr()
 
 
 @torch.no_grad()

@@ -1208,3 +1208,210 @@ def test_train_restart_on_card(cuda, tmp_path):
         p3, o3, _ = step(p3, o3, on_device(pipe.batch_at(i), cuda))
     for x, y in zip(grad_leaves(p), grad_leaves(p3)):
         torch.testing.assert_close(x, y, atol=1e-6, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the fused decode's CUDA graphs (model_exec.DecodeGraphs): each step held
+# bitwise against the eager decode_step, tokens and the whole pool
+# ---------------------------------------------------------------------------
+
+def graph_setup(cuda, arch, n_blocks=128, bs=16):
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.model import init_params
+
+    cfg = get_smoke(arch)
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                         device=cuda)
+    pool = torch.randn((cfg.n_layers, 2, n_blocks, bs, cfg.n_kv_heads,
+                        cfg.hd), generator=torch.Generator(cuda)
+                       .manual_seed(1), device=cuda)
+    return cfg, params, pool
+
+
+def padded(tables: list, width: int) -> np.ndarray:
+    out = np.zeros((len(tables), width), np.int32)
+    for i, t in enumerate(tables):
+        out[i, :len(t)] = t
+    return out
+
+
+def eager_step(cfg, params, pool, tokens, tables, lens):
+    """``decode_step`` as the engine ran it before graphs: the table at
+    its own ``table_bucket`` width."""
+    from repro_torch.serving import model_exec
+
+    width = model_exec.table_bucket(max(len(t) for t in tables))
+    dev = pool.device
+    toks, _ = model_exec.decode_step(
+        cfg, params, pool, torch.as_tensor(tokens, dtype=torch.int32,
+                                           device=dev),
+        torch.as_tensor(padded(tables, width), device=dev),
+        torch.as_tensor(lens, dtype=torch.int32, device=dev))
+    return toks.cpu()
+
+
+def graph_step(graphs, pool, tokens, tables, lens):
+    """One step the engine's way: fit the width, upload, replay the
+    bucket's graph or run it eagerly and capture.  Returns (tokens,
+    whether it captured)."""
+    width = graphs.fit(max(len(t) for t in tables))
+    b = len(tokens)
+    graphs.upload(np.asarray(tokens, np.int32), padded(tables, width),
+                  np.asarray(lens, np.int32))
+    if graphs.ready(b, pool):
+        return graphs.replay(b).cpu(), False
+    toks = graphs.warm(b, pool)
+    graphs.capture(b, pool)
+    return toks.cpu(), True
+
+
+def batch_rows(cfg, n_real, b, n_blocks, bs, seed, lo=1, hi=200, spare=3):
+    """``n_real`` rows of random lengths in [lo, hi) with distinct blocks
+    enough for ``spare`` more tokens, then padding rows (token 0, length
+    0, an empty table) up to the bucket ``b``."""
+    rng = np.random.default_rng(seed)
+    lens = [int(x) for x in rng.integers(lo, hi, n_real)]
+    free = list(rng.permutation(np.arange(1, n_blocks)))
+    tables = []
+    for n in lens:
+        k = -(-(n + spare) // bs)
+        tables.append([int(x) for x in free[:k]])
+        del free[:k]
+    tokens = [int(x) for x in rng.integers(1, cfg.vocab, n_real)]
+    pad = b - n_real
+    return tokens + [0] * pad, tables + [[]] * pad, lens + [0] * pad
+
+
+@pytest.mark.parametrize("arch", ["qwen1_5_0_5b", "olmoe_1b_7b"])
+@pytest.mark.parametrize("n_real, b", [(1, 1), (3, 4), (8, 8)],
+                         ids=["b1", "b4_pad", "b8"])
+def test_decode_graph_replays_bitwise_the_eager_step(cuda, arch, n_real, b):
+    """The capture step (eager on the side stream), a replay from the
+    same state and two replays after it, each token fed back: the
+    graph's tokens and the whole pool equal the eager ``decode_step``'s
+    bit for bit, at the graphs' width 64 against the eager path's own
+    bucket; ``ops.launch_counts()`` counts the kernel once per layer per
+    replay (and per eager reference step); a pool tensor at another
+    address is not ready."""
+    from repro_torch.serving import model_exec
+
+    bs = 16
+    cfg, params, pool = graph_setup(cuda, arch, bs=bs)
+    tokens, tables, lens = batch_rows(cfg, n_real, b, pool.shape[2], bs,
+                                      seed=b)
+    eager, graphed = pool.clone(), pool.clone()
+    graphs = model_exec.DecodeGraphs(cfg, params, 64, cuda)
+    want = eager_step(cfg, params, eager, tokens, tables, lens)
+    got, captured = graph_step(graphs, graphed, tokens, tables, lens)
+    assert captured and torch.equal(got, want)
+    assert torch.equal(graphed, eager)
+    assert not graphs.ready(b, eager)
+    graphed.copy_(pool)                   # the same state, same address
+    ops.reset_launch_counts()
+    got, captured = graph_step(graphs, graphed, tokens, tables, lens)
+    assert not captured and torch.equal(got, want)
+    assert torch.equal(graphed, eager)
+    for _ in range(2):
+        tokens = [int(t) for t in want[:n_real]] + tokens[n_real:]
+        lens = [n + 1 for n in lens[:n_real]] + lens[n_real:]
+        want = eager_step(cfg, params, eager, tokens, tables, lens)
+        got, captured = graph_step(graphs, graphed, tokens, tables, lens)
+        assert not captured and torch.equal(got, want)
+        assert torch.equal(graphed, eager)
+    counts = ops.launch_counts()       # three replays, two eager steps
+    assert counts["paged_decode_attention"] == (3 + 2) * cfg.n_layers
+    assert sum(counts.values()) == counts["paged_decode_attention"]
+
+
+def test_decode_graph_recaptures_for_a_pool_at_another_address(cuda):
+    """A bucket captured over one pool tensor is not replayed over
+    another: the step runs eagerly and captures again (the old graph
+    goes after the capture), then replays there, bitwise the eager
+    step."""
+    from repro_torch.serving import model_exec
+
+    cfg, params, pool = graph_setup(cuda, "qwen1_5_0_5b")
+    tokens, tables, lens = batch_rows(cfg, 2, 2, pool.shape[2], 16, seed=5)
+    graphs = model_exec.DecodeGraphs(cfg, params, 64, cuda)
+    first, eager = pool.clone(), pool.clone()
+    assert graph_step(graphs, first, tokens, tables, lens)[1]
+    moved = pool.clone()
+    want = eager_step(cfg, params, eager, tokens, tables, lens)
+    for captured in (True, False):
+        moved.copy_(pool)
+        got, did = graph_step(graphs, moved, tokens, tables, lens)
+        assert did == captured and torch.equal(got, want)
+        assert torch.equal(moved, eager)
+    assert not graphs.ready(2, first)
+
+
+def test_decode_graph_width_growth_recaptures_mid_sequence(cuda):
+    """Two rows decoding from 58 and 30 tokens at a start width of 4
+    blocks: the first row's fifth block moves the width to 6 and drops
+    the graph, so the bucket is captured twice; every step's tokens and
+    the final pool equal the eager steps'."""
+    from repro_torch.serving import model_exec
+
+    bs = 16
+    cfg, params, pool = graph_setup(cuda, "qwen1_5_0_5b", bs=bs)
+    tables = [[3, 9, 4, 12, 7], [21, 2, 30]]
+    tokens, lens = [11, 17], [58, 30]
+    eager, graphed = pool.clone(), pool.clone()
+    graphs = model_exec.DecodeGraphs(cfg, params, 4, cuda)
+    captures, widths = 0, []
+    for _ in range(12):
+        live = [t[:-(-(n + 1) // bs)] for t, n in zip(tables, lens)]
+        want = eager_step(cfg, params, eager, tokens, live, lens)
+        got, captured = graph_step(graphs, graphed, tokens, live, lens)
+        assert torch.equal(got, want)
+        captures += captured
+        widths.append(graphs.width)
+        tokens = [int(t) for t in want]
+        lens = [n + 1 for n in lens]
+    assert widths == [4] * 6 + [6] * 6
+    assert captures == 2
+    assert torch.equal(graphed, eager)
+
+
+def test_engine_on_card_replays_decode_graphs(cuda):
+    """Smoke-width serve run on the card, lanes on: every stream equals
+    greedy decoding by the port's forward; decode steps are replays but
+    one capture per (bucket, width) used, each under a
+    ``model_exec.capture`` span, and each decode launch span says which;
+    each kernel launched once per layer per engine launch."""
+    import time
+
+    from repro_torch import obs
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import serve
+    from repro_torch.models.model import greedy_generate, init_params
+
+    cfg = get_smoke("qwen1_5_0_5b")
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                         device=cuda)
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    res = serve.serve(cfg, params, serve.SMOKE, device=cuda)
+    counts = ops.launch_counts()
+    eng, st = res.engine, res.engine.stats
+    assert eng.worker is not None and eng.graphs is not None
+    spans = [s for s in obs.recorder().spans() if s.t0 >= t0]
+    caps = [(s.attrs["rows"], s.attrs["width"]) for s in spans
+            if s.name == "model_exec.capture"]
+    decode = [s.attrs["graph"] for s in spans
+              if s.name == "model_exec.launch"
+              and s.attrs["kind"] == "decode"]
+    assert st.decode_graph_replays > st.decode_graph_captures > 0
+    assert st.decode_graph_captures == len(caps) == len(set(caps))
+    assert st.decode_graph_replays + st.decode_graph_captures == \
+        st.decode_launches == len(decode)
+    assert sum(decode) == st.decode_graph_replays
+    assert counts["paged_decode_attention"] == cfg.n_layers * \
+        st.decode_launches
+    assert counts["packed_prefill_attention"] == cfg.n_layers * \
+        st.packed_prefill_calls
+    assert st.host_syncs == st.decode_launches + st.packed_prefill_calls
+    for r, prompt in res.requests:
+        assert eng.outputs[r.rid] == greedy_generate(
+            cfg, params, prompt, r.output_len)
+    eng.kill()
