@@ -1,4 +1,4 @@
-"""Readings that set a configuration's limit on the logit gap (not run by
+"""Readings that set a configuration's check limits (not run by
 the benchmark's own runs).  For each seed, one run of the cell as the
 benchmark runs it (``--seconds`` may be shorter), then ``check.check``
 on its sample of finished requests twice: once as every run judges the

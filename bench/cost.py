@@ -11,11 +11,30 @@ F32 = 4
 
 
 def layer_params(arch) -> int:
-    """Matmul parameters of one layer that every token uses."""
+    """Matmul parameters of one layer that every token uses: in a routed
+    layer the router, its ``top_k`` experts and the shared experts."""
     d, hd = arch.d_model, arch.hd
     attn = d * hd * (arch.n_heads + 2 * arch.n_kv_heads) \
         + arch.n_heads * hd * d
+    if arch.family == "moe":
+        return attn + d * arch.n_experts \
+            + (arch.top_k + arch.n_shared) * 3 * d * arch.d_expert
     return attn + 3 * d * arch.d_ff
+
+
+def moe_ffn(arch, tokens: int, experts_hit: int) -> tuple:
+    """(FLOPs, bytes) of one layer's routed FFN call over ``tokens``
+    tokens: the router, each token's ``top_k`` experts and the shared
+    experts; bytes are the weights of the router, the shared experts and
+    the ``experts_hit`` distinct experts that took at least one token,
+    and the activations in and out.  A lower bound: a kernel that
+    computes a slot it then drops, or reads an expert twice, reads
+    below 100 % of it."""
+    d, f = arch.d_model, arch.d_expert
+    per_tok = d * arch.n_experts \
+        + (arch.top_k + arch.n_shared) * 3 * d * f
+    weights = d * arch.n_experts + (experts_hit + arch.n_shared) * 3 * d * f
+    return 2 * tokens * per_tok, (weights + 2 * tokens * d) * F32
 
 
 def attn_flops(arch, keys: int) -> int:

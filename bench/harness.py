@@ -81,22 +81,43 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
     return Cell(name, entry, config, mix, e2e, per, root)
 
 
+# published keys every decoder's file may give, and the ArchConfig field
+# each is checked against
+FIELDS = {"num_hidden_layers": "n_layers", "hidden_size": "d_model",
+          "num_attention_heads": "n_heads",
+          "num_key_value_heads": "n_kv_heads", "vocab_size": "vocab",
+          "head_dim": "hd", "rope_theta": "rope_theta",
+          "qkv_bias": "qkv_bias", "qk_norm": "qk_norm",
+          "intermediate_size": "d_ff"}
+
+
 def build_arch(config: dict, root: Path = ROOT):
     """The program's ``ArchConfig``: its config module's published widths
     with the file's ``program.overrides``, checked against the file's
-    published keys."""
+    published keys: those of ``FIELDS`` that the file gives, and every
+    pair of ``program.fields`` ({published key: ArchConfig field}), which
+    the file must give.  In a routed model ``intermediate_size`` is one
+    expert's width, unless the file gives ``moe_intermediate_size``."""
     program(root)
     from repro_torch.configs import get
-    arch = dataclasses.replace(get(config["program"]["arch"]),
-                               **config["program"].get("overrides", {}))
-    want = {"num_hidden_layers": arch.n_layers, "hidden_size": arch.d_model,
-            "num_attention_heads": arch.n_heads,
-            "num_key_value_heads": arch.n_kv_heads,
-            "vocab_size": arch.vocab, "head_dim": arch.hd,
-            "rope_theta": arch.rope_theta, "qkv_bias": arch.qkv_bias,
-            "qk_norm": arch.qk_norm, "intermediate_size": arch.d_ff}
-    bad = {k: (config[k], v) for k, v in want.items()
-           if k in config and config[k] != v}
+    prog = config["program"]
+    arch = dataclasses.replace(get(prog["arch"]), **prog.get("overrides", {}))
+    fields = {k: v for k, v in FIELDS.items() if k in config}
+    if arch.family == "moe":
+        if "moe_intermediate_size" in config:
+            fields.pop("intermediate_size", None)
+        elif "intermediate_size" in fields:
+            fields["intermediate_size"] = "d_expert"
+    listed = prog.get("fields", {})
+    lacking = [f for f in listed.values() if not hasattr(arch, f)]
+    unstated = [k for k in listed if k not in config]
+    if lacking or unstated:
+        raise ValueError(f"program.fields names ArchConfig fields it lacks "
+                         f"{lacking} or published keys the file lacks "
+                         f"{unstated}")
+    fields.update(listed)
+    bad = {k: (config[k], getattr(arch, f)) for k, f in fields.items()
+           if config[k] != getattr(arch, f)}
     if bad:
         raise ValueError(f"the program's config differs from the file: "
                          f"{bad}")
@@ -168,7 +189,8 @@ class Run:
 _STAT_KEYS = ("iterations", "tokens_out", "prefill_tokens", "evictions",
               "reload_blocks", "cache_hit_tokens", "offload_blocks",
               "staged_hits", "staged_misses", "host_syncs",
-              "decode_launches", "packed_prefill_calls", "cow_forks")
+              "decode_launches", "packed_prefill_calls", "cow_forks",
+              "decode_graph_captures", "decode_graph_replays")
 
 
 def _stats(eng) -> dict:

@@ -45,6 +45,39 @@ def swiglu(x, w_gate, w_up, w_down):
     return (torch.nn.functional.silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
+def norm_heads(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """QK-norm of x (S, heads, hd): RMSNorm of each head where the scale
+    has hd entries, of the whole projection (OLMoE's published QK-norm)
+    where it has heads * hd."""
+    if w.numel() == x.shape[-1]:
+        return rmsnorm(x, w, eps)
+    return rmsnorm(x.reshape(x.shape[0], -1), w, eps).reshape(x.shape)
+
+
+def routed_ffn(spec: dict, m: dict, li: int, h: torch.Tensor) -> torch.Tensor:
+    """One layer's routed experts on the normed input h (S, d), as the
+    published MoE decoders (OLMoE, Qwen-MoE) describe them: each token's
+    ``num_experts_per_tok`` experts of highest router logit (ties to the
+    lower index), each gated by its softmax over all the experts' logits,
+    renormalised over the chosen ones where ``norm_topk_prob`` (then the
+    softmax over the chosen logits alone, as Mixtral's), and the gated sum
+    of their SwiGLU outputs.  No shared experts."""
+    k = spec["num_experts_per_tok"]
+    logits = h @ m["router"][li]                           # (S, E)
+    idx = torch.sort(logits, dim=-1, descending=True, stable=True)[1][:, :k]
+    gates = torch.softmax(logits, dim=-1).gather(1, idx)
+    if spec.get("norm_topk_prob"):
+        gates = gates / gates.sum(-1, keepdim=True)
+    out = torch.zeros_like(h)
+    for e in range(logits.shape[1]):
+        tok, slot = (idx == e).nonzero(as_tuple=True)
+        if tok.numel():
+            y = swiglu(h[tok], m["w_gate"][li, e], m["w_up"][li, e],
+                       m["w_down"][li, e])
+            out.index_add_(0, tok, y * gates[tok, slot, None])
+    return out
+
+
 def attention_block(spec: dict, a: dict, li: int, h: torch.Tensor,
                     pos: torch.Tensor) -> torch.Tensor:
     """One layer's attention on the normed input h (S, d)."""
@@ -58,8 +91,8 @@ def attention_block(spec: dict, a: dict, li: int, h: torch.Tensor,
     k = k.reshape(-1, nkv, hd)
     v = v.reshape(-1, nkv, hd)
     if spec.get("qk_norm"):
-        q = rmsnorm(q, a["q_norm"][li], spec["rms_norm_eps"])
-        k = rmsnorm(k, a["k_norm"][li], spec["rms_norm_eps"])
+        q = norm_heads(q, a["q_norm"][li], spec["rms_norm_eps"])
+        k = norm_heads(k, a["k_norm"][li], spec["rms_norm_eps"])
     q = rope(q, pos, spec["rope_theta"])
     k = rope(k, pos, spec["rope_theta"])
     return causal_attention(q, k, v) @ a["wo"][li]

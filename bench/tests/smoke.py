@@ -2,9 +2,10 @@
 
 ``make(dst)`` copies ``BENCHMARK.json`` and ``bench/`` into ``dst``,
 links the program's ``src`` beside them, and ADDS, as new files and
-entries only, a configuration, a traffic mix, a cell and two metrics
-(one end-to-end, one per-layer): exactly what a later change that extends
-the benchmark does.
+entries only, a dense configuration, a traffic mix, a cell and two
+metrics (one end-to-end, one per-layer), and a routed-expert (MoE)
+configuration with its own reference, mix and cell: exactly what a later
+change that extends the benchmark does.
 """
 from __future__ import annotations
 
@@ -15,12 +16,35 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[2]
 CHAT = "qwen2_7b.chat"
 SMOKE_CHAT = "smoke.chat"
+SMOKE_MOE = "smoke.moe"
 
 DENSE = dict(num_hidden_layers=2, hidden_size=64, num_attention_heads=4,
              num_key_value_heads=2, head_dim=16, intermediate_size=128,
              vocab_size=256)
 DENSE_ARCH = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
                   head_dim=16, d_ff=128, vocab=256)
+# the port's olmoe_1b_7b SMOKE widths: 8 experts, top-2, capacity factor
+# E / k = 4, so no slot is dropped
+MOE = dict(num_hidden_layers=2, hidden_size=64, num_attention_heads=4,
+           num_key_value_heads=4, head_dim=16, intermediate_size=32,
+           vocab_size=256, num_experts=8, num_experts_per_tok=2)
+MOE_ARCH = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=4,
+                head_dim=16, d_ff=32, d_expert=32, n_experts=8, top_k=2,
+                vocab=256, capacity_factor=4.0)
+# a reference of the port's present routing and QK-norm, as a later
+# configuration brings its own
+MOE_REFERENCE = '''"""A routed decoder in OLMoE's layout (QK-norm, routed experts)."""
+import torch
+
+from .common import routed_ffn, run
+
+
+@torch.no_grad()
+def logits(spec, w, tokens, rows):
+    m = w["layers"]["moe"]
+    return run(spec, w, tokens, rows,
+               lambda li, h: routed_ffn(spec, m, li, h))
+'''
 READER = '''"""Requests due in the window (a metric added by a test)."""
 
 
@@ -46,6 +70,35 @@ def _config(src: str, sizes: dict, arch: dict, blocks: int) -> dict:
     return c
 
 
+def moe_config() -> dict:
+    """The smoke MoE configuration file: published OLMoE keys at the
+    port's SMOKE widths, checked by the routed rule."""
+    return dict(
+        source="https://huggingface.co/allenai/OLMoE-1B-7B-0924/blob/main/"
+               "config.json",
+        **MOE, rms_norm_eps=1e-06, rope_theta=10000.0, qkv_bias=False,
+        qk_norm=True, norm_topk_prob=True, dtype="float32", tf32=False,
+        reference="smoke_moe",
+        program={"arch": "olmoe_1b_7b", "overrides": dict(MOE_ARCH),
+                 "fields": {"num_experts": "n_experts",
+                            "num_experts_per_tok": "top_k"}},
+        serve={"num_blocks": 400, "block_size": 16, "max_seqs": 256},
+        check={"rule": "routed", "gap_tol": 1e-3, "max_departing_share": 0.12,
+               "min_requests": 8, "min_tokens": 20, "sample_tokens": 1500,
+               "sample_requests": 12, "include": [],
+               "why": {"gap_tol": "fp32 rounding at a near-tie of the "
+                                  "vocabulary; the dense rule's limit",
+                       "max_departing_share": "the value set at full "
+                                              "width from the card's "
+                                              "readings (PERF.md)",
+                       "min_requests": "a mean over enough requests to "
+                                       "dilute one that departs",
+                       "min_tokens": "the smoke cell's sample"}},
+        assumed=["norm_topk_prob true and QK-norm per head: the port's "
+                 "present routing and norm, which the reference follows",
+                 "rms_norm_eps 1e-06: the port's fixed epsilon"])
+
+
 def make(dst: Path) -> Path:
     dst = Path(dst)
     if dst.exists():
@@ -68,19 +121,29 @@ def make(dst: Path) -> Path:
                                  "min_prompt": 40},
                 warmup={"requests": 3, "output_tokens": 4})
     (mixes / "smoke_chat.json").write_text(json.dumps(chat))
+    (cfgs / "smoke_moe.json").write_text(json.dumps(moe_config()))
+    (dst / "bench" / "reference" / "smoke_moe.py").write_text(MOE_REFERENCE)
+    decode = dict(chat, output_tokens={"mean": 16, "sigma": 0.5, "min": 8,
+                                       "max": 32})
+    del decode["shared_prefixes"]
+    (mixes / "smoke_decode.json").write_text(json.dumps(decode))
     (dst / "bench" / "metrics" / "smoke.requests_due.py").write_text(READER)
     (dst / "bench" / "metrics" / "smoke.tokens_per_s.py").write_text(
         E2E_READER)
     conf = {c["name"]: c for c in b["configs"]}
     b["configs"].append(dict(conf["qwen2_7b_fp32"], name="smoke_dense",
                              file="bench/configs/smoke_dense.json"))
+    b["configs"].append(dict(conf["qwen2_7b_fp32"], name="smoke_moe",
+                             file="bench/configs/smoke_moe.json"))
     cells = {w["name"]: w for w in b["workloads"]}
     b["workloads"].append(dict(cells[CHAT], name=SMOKE_CHAT,
                                config="smoke_dense", traffic="smoke_chat"))
+    b["workloads"].append(dict(cells[CHAT], name=SMOKE_MOE,
+                               config="smoke_moe", traffic="smoke_decode"))
     for m in b["end_to_end"] + b["per_layer"]:
         ws = m.get("workloads")
         if ws is not None and CHAT in ws:
-            ws.append(SMOKE_CHAT)
+            ws += [SMOKE_CHAT, SMOKE_MOE]
     b["end_to_end"].append({"name": "smoke.tokens_per_s",
                             "unit": "tokens/s", "better": "higher",
                             "bound": 0.25, "source": "host_clock",

@@ -45,7 +45,10 @@ def test_trace_run_reads_the_host_side_metrics_and_the_added_one(copy):
     # the device's metrics need the card's trace: silent on the CPU
     assert got == {"frontend.late_p95_ms", "sched.form_batch_ms",
                    "engine.step_ms", "engine.empty_step_ms",
-                   "prefix.hit_share", "smoke.requests_due"}
+                   "prefix.hit_share", "smoke.requests_due",
+                   "driver.inbox_wait_p75_ms", "engine.queue_wait_p75_ms",
+                   "sched.empty_round_share",
+                   "model_exec.decode_graph_share"}
     assert res["metrics"]["smoke.requests_due"]["value"] == 24
     untraced = harness.info(run(copy, smoke.SMOKE_CHAT)["run"], res)
     assert set(untraced["per_layer_host"]) == got
@@ -60,13 +63,54 @@ def test_same_seed_same_schedule_and_streams(copy):
         assert x.tokens == y.tokens
 
 
+def test_moe_cell_runs_end_to_end_and_is_correct_under_the_routed_rule(
+        copy):
+    res = run(copy, smoke.SMOKE_MOE, seed=-SEED)    # any whole number
+    chk = res["check"]
+    assert chk["correct"], chk["numbers"]
+    assert set(chk["numbers"]) == {"departing_share", "requests_checked",
+                                   "tokens_checked", "overlong_streams"}
+    assert set(res["metrics"]) == {"tdg_ratio", "setup_s"}
+    r = res["run"]
+    assert r.arch.family == "moe" and r.arch.top_k == 2
+    assert len(r.measured) == 24 and not any(x.failed for x in r.measured)
+    assert r.counters["decode_graph_captures"] == 0   # the CPU never
+    assert r.counters["decode_launches"] > 0          # captures
+
+
 FAULTS = ["token_altered", "state_unchanged", "half_batch"]
+# a program that leaves out part of the routing
+ROUTED_FAULTS = ["top_k_minus_one", "gates_over_all_experts",
+                 "expert_zeroed"]
 
 
 def _break(monkeypatch, fault):
+    from repro_torch.models import moe
     from repro_torch.serving import engine as eng_mod
     from repro_torch.serving import model_exec
-    if fault == "token_altered":
+    if fault == "top_k_minus_one":
+        fwd = moe.moe_forward
+
+        def fewer(x, p, top_k, *a, **k):
+            return fwd(x, p, top_k - 1, *a, **k)
+        monkeypatch.setattr(moe, "moe_forward", fewer)
+    elif fault == "gates_over_all_experts":
+        route = moe.route
+
+        def unnormalised(x, p, top_k, capacity_factor=1.25):
+            r = route(x, p, top_k, capacity_factor)
+            probs = torch.softmax(x.float() @ p["router"].float(), dim=-1)
+            return r._replace(gates=probs.gather(-1, r.idx))
+        monkeypatch.setattr(moe, "route", unnormalised)
+    elif fault == "expert_zeroed":
+        experts = moe._swiglu_e
+
+        def lost(h, *w):
+            y = experts(h, *w).clone()
+            y[0] = 0
+            return y
+        monkeypatch.setattr(moe, "_swiglu_e", lost)
+    elif fault == "token_altered":
         emit = eng_mod.Engine._emit
 
         def bad_emit(self, r, tok, emitted):
@@ -99,6 +143,15 @@ def test_a_broken_timed_path_is_not_correct(copy, monkeypatch, fault):
     nums = res["check"]["numbers"]
     assert not res["check"]["correct"]
     assert not nums["max_logit_gap"]["holds"], nums
+
+
+@pytest.mark.parametrize("fault", FAULTS + ROUTED_FAULTS)
+def test_a_broken_routed_path_is_not_correct(copy, monkeypatch, fault):
+    _break(monkeypatch, fault)
+    res = run(copy, smoke.SMOKE_MOE)
+    nums = res["check"]["numbers"]
+    assert not res["check"]["correct"]
+    assert not nums["departing_share"]["holds"], nums
 
 
 def test_run_py_refuses_without_a_card():

@@ -8,7 +8,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from bench import traffic, yardstick
+from bench import cost, traffic, yardstick
 
 MIXES = Path(__file__).resolve().parents[1] / "traffic"
 
@@ -62,6 +62,67 @@ def test_shared_prefixes_open_the_prompts_that_have_them():
             heads.setdefault(p.prefix, p.prompt[:sp["tokens"]].tobytes())
             assert heads[p.prefix] == p.prompt[:sp["tokens"]].tobytes()
     assert len(heads) == sp["count"]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2**31 + 77, 2**63 - 1, 2**64 + 3])
+def test_every_non_negative_seed_keeps_its_schedule(seed, monkeypatch):
+    m = traffic.load(MIXES / "chat.json")
+    now = traffic.schedule(m, 10.0, 1000, seed)
+    warm = traffic.warmup_set(m, 1000, seed)
+    # numpy took the seed as it was before any whole number was taken
+    monkeypatch.setattr(traffic, "entropy", lambda s: s)
+    then = traffic.schedule(m, 10.0, 1000, seed)
+    assert [p.due for p in now] == [p.due for p in then]
+    assert all((x.prompt == y.prompt).all() for x, y in zip(now, then))
+    assert all((x == y).all() and a == b for (x, a), (y, b)
+               in zip(warm, traffic.warmup_set(m, 1000, seed)))
+
+
+def test_a_negative_seed_gives_the_same_work_in_another_order():
+    m = traffic.load(MIXES / "chat.json")
+    a = traffic.schedule(m, 10.0, 1000, -(2**31 + 77))
+    b = traffic.schedule(m, 10.0, 1000, -(2**31 + 77))
+    assert [p.due for p in a] == [p.due for p in b]
+    assert Counter((len(p.prompt), p.output_len) for p in a) == Counter(
+        (len(p.prompt), p.output_len) for p in traffic.schedule(
+            m, 10.0, 1000, 5))
+    assert len(traffic.warmup_set(m, 1000, -3)) == m["warmup"]["requests"]
+
+
+def _arch(name):
+    from repro_torch.configs import get
+    return get(name)
+
+
+def test_dense_layer_params_are_unchanged():
+    # attention 3584 x 128 x (28 + 2 x 4) + 28 x 128 x 3584, SwiGLU
+    # 3 x 3584 x 18944: the count before routed layers were counted
+    assert cost.layer_params(_arch("qwen2_7b")) == 233046016
+
+
+@pytest.mark.parametrize("name", ["olmoe_1b_7b", "qwen2_moe_a2_7b"])
+def test_routed_layer_params_are_the_active_count(name):
+    a = _arch(name)
+    assert a.n_layers * cost.layer_params(a) + 2 * a.vocab * a.d_model \
+        == a.active_param_count()
+
+
+def test_moe_ffn_counts_the_routed_work_and_the_experts_it_reads():
+    a = _arch("olmoe_1b_7b")
+    d, f, E = a.d_model, a.d_expert, a.n_experts
+    flops, bytes_ = cost.moe_ffn(a, 10, 30)
+    assert flops == 2 * 10 * (d * E + a.top_k * 3 * d * f)
+    assert bytes_ == 4 * (d * E + 30 * 3 * d * f + 2 * 10 * d)
+    # one token reads its own experts: the bound is a weight read, not
+    # all 64 experts
+    one = cost.moe_ffn(a, 1, a.top_k)
+    assert cost.bound_s(*one, {"fp32_flops_per_s": 165e12,
+                               "bytes_per_s": 3.35e12}) == pytest.approx(
+        one[1] / 3.35e12)
+    q = _arch("qwen2_moe_a2_7b")
+    shared = 3 * q.d_model * q.n_shared * q.d_expert
+    assert cost.moe_ffn(q, 1, 0)[1] == 4 * (q.d_model * q.n_experts
+                                            + shared + 2 * q.d_model)
 
 
 def test_lognormal_quantiles_have_the_mixes_mean_before_clipping():

@@ -109,9 +109,16 @@ def _segment(n: int, start: float, length: float, mix: dict,
              int(cls[i]), bool(has_pre[i])) for k, i in enumerate(order)]
 
 
+def entropy(seed: int) -> int:
+    """Any whole number as numpy's seed: a non-negative one as it is, a
+    negative one as ``weights.seed_int`` takes it."""
+    seed = int(seed)
+    return seed if seed >= 0 else seed % (1 << 63)
+
+
 def schedule(mix: dict, seconds: float, vocab: int, seed: int) -> list:
     """The run's requests in due order, with their prompts."""
-    rng = np.random.default_rng(seed)
+    rng = np.random.default_rng(entropy(seed))
     rate = float(mix["rate_per_s"])
     segs = [("ramp", -float(mix["ramp_s"]), float(mix["ramp_s"])),
             ("window", 0.0, float(seconds)),
@@ -144,7 +151,7 @@ def warmup_set(mix: dict, vocab: int, seed: int) -> list:
     """(prompt, output_len) pairs for set-up's warm-up: the mix's longest
     and shortest prompts and a few mid-sized ones, at short outputs, from
     the seed (the same work for every seed)."""
-    rng = np.random.default_rng([seed, 1])
+    rng = np.random.default_rng([entropy(seed), 1])
     pt = mix["prompt_tokens"]
     w = mix["warmup"]
     lens = [pt["max"], pt["min"]] + [int(pt["mean"])] * (w["requests"] - 2)

@@ -4,13 +4,31 @@
 (d, H*hd), ``lm_head`` as (V, d)).  The program and the plain reference
 are handed the same tensors.
 
-Scales: matrices N(0, 1/fan_in); ``wo`` also divided by sqrt(2 L);
-embeddings and the head 0.02; biases N(0, 0.1^2) and norm scales
-1 + N(0, 0.1^2), so that a path that drops a bias or a scale shows.
+Scales: matrices N(0, 1/fan_in), fan_in the leaf's second-to-last axis
+(the router and each expert's projections included); ``wo`` also divided
+by sqrt(2 L); embeddings and the head 0.02; biases N(0, 0.1^2) and norm
+scales 1 + N(0, 0.1^2), so that a path that drops a bias or a scale
+shows.
+
+Dense rmsnorm / swiglu models draw their leaves from one generator in
+the fixed order of ``_dense``.  Every other model follows the port's own
+layout: the leaf names and shapes of ``init_params(arch, None,
+device="meta")`` (no memory), each leaf drawn by its role from a
+generator of its own, seeded by the seed and the leaf's path, so a leaf's
+values do not depend on which other leaves the layout holds or in what
+order.  A leaf whose role is not known here raises.
 """
 from __future__ import annotations
 
+import hashlib
+
 import torch
+
+# the role of each leaf name in the port's layout
+_MATRICES = {"wq", "wk", "wv", "w_gate", "w_up", "w_down", "router"}
+_SCALES = {"scale", "q_norm", "k_norm"}
+_BIASES = {"bq", "bk", "bv", "bias", "b_up", "b_down"}
+_TABLES = {"embed", "lm_head"}
 
 
 def seed_int(seed: int) -> int:
@@ -19,11 +37,13 @@ def seed_int(seed: int) -> int:
 
 
 def make_weights(arch, seed: int, device, dtype=torch.float32) -> dict:
-    if arch.family != "dense" or arch.norm != "rmsnorm" \
-            or arch.act != "swiglu":
-        raise NotImplementedError(
-            f"the benchmark makes weights for rmsnorm/swiglu dense "
-            f"models, not {arch.family}/{arch.norm}/{arch.act}")
+    if arch.family == "dense" and arch.norm == "rmsnorm" \
+            and arch.act == "swiglu":
+        return _dense(arch, seed, device, dtype)
+    return _by_layout(arch, seed, device, dtype)
+
+
+def _dense(arch, seed: int, device, dtype) -> dict:
     g = torch.Generator(device).manual_seed(seed_int(seed))
     d, hd, L = arch.d_model, arch.hd, arch.n_layers
     H, Hkv = arch.n_heads, arch.n_kv_heads
@@ -54,6 +74,43 @@ def make_weights(arch, seed: int, device, dtype=torch.float32) -> dict:
             "lm_head": normal((arch.vocab, d), 0.02),
             "ln_f": {"scale": scale((d,))},
             "layers": layers}
+
+
+def _leaf_seed(seed: int, path: str) -> int:
+    digest = hashlib.blake2b(f"{seed_int(seed)}/{path}".encode(),
+                             digest_size=8).digest()
+    return int.from_bytes(digest, "little") % (1 << 63)
+
+
+def _by_layout(arch, seed: int, device, dtype) -> dict:
+    from repro_torch.models.model import init_params
+    layout = init_params(arch, None, dtype=dtype, device="meta")
+
+    def draw(path: str, like: torch.Tensor) -> torch.Tensor:
+        name = path.rsplit(".", 1)[-1]
+        shape = tuple(like.shape)
+        if name in _MATRICES:
+            mean, std = 0.0, shape[-2] ** -0.5
+        elif name == "wo":
+            mean, std = 0.0, (shape[-2] * 2 * arch.n_layers) ** -0.5
+        elif name in _TABLES:
+            mean, std = 0.0, 0.02
+        elif name in _BIASES:
+            mean, std = 0.0, 0.1
+        elif name in _SCALES:
+            mean, std = 1.0, 0.1
+        else:
+            raise NotImplementedError(
+                f"the benchmark knows no role for the leaf {path!r} of "
+                f"{arch.name} ({arch.family})")
+        g = torch.Generator(device).manual_seed(_leaf_seed(seed, path))
+        t = torch.empty(shape, dtype=like.dtype, device=device)
+        return t.normal_(mean, std, generator=g)
+
+    def walk(tree: dict, prefix: str) -> dict:
+        return {k: walk(v, f"{prefix}{k}.") if isinstance(v, dict)
+                else draw(prefix + k, v) for k, v in tree.items()}
+    return walk(layout, "")
 
 
 def nbytes(tree: dict) -> int:
