@@ -3,6 +3,9 @@
 Each module defines ``CONFIG`` (the exact published configuration) and
 ``SMOKE`` (a reduced same-family variant for CPU tests).  ``get(name)``
 returns the full config, ``get_smoke(name)`` the reduced one.
+``ARCH_IDS`` are the JAX reference's; ``olmoe_1b_7b_0924`` (alias
+``olmoe-1b-7b-0924``) is OLMoE-1B-7B as published, where
+``olmoe_1b_7b`` follows the reference.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ ARCH_IDS = [
 _ALIASES = {
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "olmoe-1b-7b": "olmoe_1b_7b",
+    "olmoe-1b-7b-0924": "olmoe_1b_7b_0924",
     "whisper-small": "whisper_small",
     "mamba2-1.3b": "mamba2_1_3b",
     "chameleon-34b": "chameleon_34b",

@@ -1,7 +1,9 @@
-"""OLMoE-1B-7B [arXiv:2409.02060; hf].
+"""OLMoE-1B-7B [arXiv:2409.02060; hf] as the JAX reference renders it.
 
 16L d_model=2048 16H (GQA kv=16) d_ff(expert)=1024 vocab=50304,
-MoE: 64 routed experts, top-8, no shared experts.  QK-norm per OLMoE.
+MoE: 64 routed experts, top-8, no shared experts.  QK-norm per head,
+the top-8 gates renormalised and RMSNorm epsilon 1e-6, as the reference
+computes them; the published model is ``olmoe_1b_7b_0924``.
 """
 import dataclasses
 from ..models.model import ArchConfig

@@ -4,6 +4,8 @@ modes, ``examples/priority_serving.py`` and ``examples/serve_cluster.py``).
 
     python -m repro_torch.launch.serve --arch qwen1_5_0_5b
     python -m repro_torch.launch.serve --arch qwen1_5_0_5b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch olmoe_1b_7b_0924  # OLMoE as
+                                                        # published
     python -m repro_torch.launch.serve --tiered             # bounded host tier
     python -m repro_torch.launch.serve --tiered --exact-cold  # fp32 cold tier
     python -m repro_torch.launch.serve --spec-k 2           # speculative
@@ -161,7 +163,8 @@ def _summary(engines: list, reqs: list, wall_s: float, arrived: dict,
             "decode_graph_captures", "decode_graph_replays",
             "packed_prefill_calls", "host_syncs", "prefill_chunk_calls",
             "spec_proposed", "spec_accepted", "spec_rejected",
-            "draft_launches")},
+            "draft_launches", "moe_routed_slots", "moe_expert_rows",
+            "moe_dropped_slots")},
         "spec_depth_hist": dict(sorted(hist.items())),
         **{k: total(k) for k in (
             "offload_blocks", "staged_hits", "staged_misses",
@@ -573,7 +576,9 @@ class FrontendResult:
                     "handoffs_out",
                     "handoff_blocks_out", "handoff_bytes_out", "handoffs_in",
                     "handoff_blocks_in", "handoff_bytes_in", "d2h_copy_s",
-                    "d2h_copy_blocks", "h2d_copy_s", "h2d_copy_blocks"):
+                    "d2h_copy_blocks", "h2d_copy_s", "h2d_copy_blocks",
+                    "moe_routed_slots", "moe_expert_rows",
+                    "moe_dropped_slots"):
             out[key] = sum(getattr(e.stats, key) for e in self.replicas)
         out["busy_s"] = {iid: e.stats.busy_s
                          for iid, e in self.engines.items()}

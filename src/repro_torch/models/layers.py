@@ -48,10 +48,13 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return y.to(dtype) * scale + bias
 
 
-def apply_norm(x: torch.Tensor, p: dict, kind: str) -> torch.Tensor:
+def apply_norm(x: torch.Tensor, p: dict, kind: str,
+               eps: float = 1e-6) -> torch.Tensor:
+    """``eps`` is the RMSNorm's (``ArchConfig.norm_eps``); a LayerNorm
+    keeps the reference's 1e-5."""
     if kind == "layernorm":
         return layernorm(x, p["scale"], p["bias"])
-    return rmsnorm(x, p["scale"])
+    return rmsnorm(x, p["scale"], eps)
 
 
 # --------------------------------------------------------------------------

@@ -3,7 +3,11 @@
 ssm / hybrid / encdec).
 
 ``ArchConfig`` is a field-for-field copy of the reference dataclass, so the
-twelve config files under ``repro_torch/configs`` are the same data.
+twelve config files under ``repro_torch/configs`` are the same data, plus
+three fields the reference lacks (``PORT_FIELDS``) for published models it
+renders otherwise: QK-norm over the whole projection, top-k gates not
+renormalised, the RMSNorms' epsilon.  At their defaults the arithmetic is
+the reference's, bit for bit.
 Parameters are a plain nested dict of tensors in the reference's layout:
 layer parameters STACKED on a leading axis, ``wq`` as (d, H*hd) and
 ``lm_head`` as (V, d).  Where JAX scans over the stacked layers, the port
@@ -58,6 +62,8 @@ class ArchConfig:
     top_k: int = 0
     d_expert: int = 0
     capacity_factor: float = 1.25
+    norm_topk_prob: bool = True  # top-k gates: softmax over the top-k
+    # logits (True), or the softmax over all E logits at the top k (False)
     # --- SSM / hybrid ---
     ssm_state: int = 0
     ssm_head_dim: int = 64
@@ -65,6 +71,8 @@ class ArchConfig:
     # --- attention details ---
     qkv_bias: bool = False
     qk_norm: bool = False
+    qk_norm_whole: bool = False  # one RMSNorm over the whole q (k)
+    # projection before the heads split, not one per head
     rope_fraction: float = 1.0
     rope_theta: float = 1e4
     window: int = 0              # sliding-window size (hybrid)
@@ -73,6 +81,7 @@ class ArchConfig:
     enc_frames: int = 0          # stub-frontend sequence length
     # --- misc ---
     norm: str = "rmsnorm"        # rmsnorm | layernorm
+    norm_eps: float = 1e-6       # epsilon of ln1, ln2, ln_f, q/k norms
     act: str = "swiglu"          # swiglu | gelu
     notes: str = ""
 
@@ -128,6 +137,10 @@ class ArchConfig:
             self.n_experts * 3 * d * self.d_expert)
         return dense_part + self.n_layers * (
             self.top_k * 3 * d * self.d_expert)
+
+
+# the fields of ``ArchConfig`` that the reference's dataclass lacks
+PORT_FIELDS = ("norm_topk_prob", "qk_norm_whole", "norm_eps")
 
 
 def resolve_device(device) -> torch.device:
@@ -189,8 +202,10 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
             p["bk"] = const((L, cfg.n_kv_heads * hd), 0.0)
             p["bv"] = const((L, cfg.n_kv_heads * hd), 0.0)
         if cfg.qk_norm:
-            p["q_norm"] = const((L, hd), 1.0)
-            p["k_norm"] = const((L, hd), 1.0)
+            p["q_norm"] = const((L, cfg.n_heads * hd if cfg.qk_norm_whole
+                                 else hd), 1.0)
+            p["k_norm"] = const((L, cfg.n_kv_heads * hd if cfg.qk_norm_whole
+                                 else hd), 1.0)
         return p
 
     def mlp(L):
@@ -300,12 +315,15 @@ def _qkv(cfg: ArchConfig, ap: dict, x: torch.Tensor):
     v = x @ ap["wv"]
     if cfg.qkv_bias:
         q, k, v = q + ap["bq"], k + ap["bk"], v + ap["bv"]
+    if cfg.qk_norm and cfg.qk_norm_whole:
+        q = rmsnorm(q, ap["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, ap["k_norm"], cfg.norm_eps)
     q = split_heads(q, cfg.n_heads, hd)
     k = split_heads(k, cfg.n_kv_heads, hd)
     v = split_heads(v, cfg.n_kv_heads, hd)
-    if cfg.qk_norm:
-        q = rmsnorm(q, ap["q_norm"])
-        k = rmsnorm(k, ap["k_norm"])
+    if cfg.qk_norm and not cfg.qk_norm_whole:
+        q = rmsnorm(q, ap["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, ap["k_norm"], cfg.norm_eps)
     return q, k, v
 
 
@@ -340,13 +358,11 @@ def _mlp(cfg: ArchConfig, lp: dict, h: torch.Tensor) -> torch.Tensor:
 
 def _ffn(cfg: ArchConfig, lp: dict, h: torch.Tensor,
          shard_fn=None) -> torch.Tensor:
-    """The layer's feed-forward: routed experts (moe) or the dense MLP.
-    ``moe_forward`` is called with the hook only when there is one, so a
-    caller that wraps it sees the plain call."""
+    """The layer's feed-forward: routed experts (moe) or the dense MLP."""
     if cfg.family == "moe":
         kw = {} if shard_fn is None else {"shard_fn": shard_fn}
         return moe.moe_forward(h, lp["moe"], cfg.top_k, cfg.capacity_factor,
-                               **kw)
+                               norm_topk_prob=cfg.norm_topk_prob, **kw)
     return _mlp(cfg, lp, h)
 
 
@@ -398,7 +414,7 @@ def forward_train(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     spec = cfg.ssm_spec if cfg.family in ("ssm", "hybrid") else None
 
     def layer(x, lp):
-        h = apply_norm(x, lp["ln1"], cfg.norm)
+        h = apply_norm(x, lp["ln1"], cfg.norm, cfg.norm_eps)
         st = k = v = None
         if cfg.family == "ssm":
             mix, st = ssd_chunked(lp["ssm"], spec, h)
@@ -414,7 +430,7 @@ def forward_train(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
                                     shard_fn=sh)
         x = sh(x + mix, "act")
         if cfg.family != "ssm":
-            h2 = apply_norm(x, lp["ln2"], cfg.norm)
+            h2 = apply_norm(x, lp["ln2"], cfg.norm, cfg.norm_eps)
             x = sh(x + _ffn(cfg, lp, h2, shard_fn), "act")
         return x, k, v, st
 
@@ -429,7 +445,7 @@ def forward_train(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
             if st is not None:
                 extras["ssm"].append(st.ssm)
                 extras["conv"].append(st.conv)
-    x = apply_norm(x, params["ln_f"], cfg.norm)
+    x = apply_norm(x, params["ln_f"], cfg.norm, cfg.norm_eps)
     if last_only:
         x = x[:, -1:]
     logits = sh(batch_only(x) @ params["lm_head"].T, "logits")
@@ -516,17 +532,17 @@ def _encoder(cfg: ArchConfig, params: dict, enc_inputs: torch.Tensor,
     enc_cfg = dataclasses.replace(cfg, family="dense", rope_fraction=0.0)
 
     def layer(x, lp):
-        h = apply_norm(x, lp["ln1"], cfg.norm)
+        h = apply_norm(x, lp["ln1"], cfg.norm, cfg.norm_eps)
         mix, _, _ = _attn_block(enc_cfg, lp["attn"], h, positions,
                                 causal=False, attn_impl=attn_impl)
         x = sh(x + mix, "act")
-        h2 = apply_norm(x, lp["ln2"], cfg.norm)
+        h2 = apply_norm(x, lp["ln2"], cfg.norm, cfg.norm_eps)
         return sh(x + _mlp(cfg, lp, h2), "act")
 
     call = _layer_call(layer, remat)
     for lp in unstack_layers(params["enc_layers"], cfg.n_enc_layers):
         x = call(x, lp)
-    return apply_norm(x, params["enc_ln_f"], cfg.norm)
+    return apply_norm(x, params["enc_ln_f"], cfg.norm, cfg.norm_eps)
 
 
 def _cross_kv(cfg: ArchConfig, xp: dict, enc_out: torch.Tensor):
@@ -549,18 +565,18 @@ def _decoder_encdec(cfg: ArchConfig, params: dict, x: torch.Tensor,
     dec_cfg = dataclasses.replace(cfg, rope_fraction=0.0)
 
     def layer(x, lp, enc_out):
-        h = apply_norm(x, lp["ln1"], cfg.norm)
+        h = apply_norm(x, lp["ln1"], cfg.norm, cfg.norm_eps)
         mix, k, v = _attn_block(dec_cfg, lp["attn"], h, positions,
                                 causal=True, attn_impl=attn_impl)
         x = sh(x + mix, "act")
         # cross attention: queries from the decoder, keys / values from
         # the encoder states
-        hx = apply_norm(x, lp["ln_x"], cfg.norm)
+        hx = apply_norm(x, lp["ln_x"], cfg.norm, cfg.norm_eps)
         qx, _, _ = _qkv(dec_cfg, lp["xattn"], hx)
         kx_e, vx_e = _cross_kv(cfg, lp["xattn"], enc_out)
         xo = _attend(qx, kx_e, vx_e, causal=False, attn_impl=attn_impl)
         x = sh(x + pinned(merge_heads(xo) @ lp["xattn"]["wo"]), "act")
-        h2 = apply_norm(x, lp["ln2"], cfg.norm)
+        h2 = apply_norm(x, lp["ln2"], cfg.norm, cfg.norm_eps)
         return sh(x + _mlp(cfg, lp, h2), "act"), k, v, kx_e, vx_e
 
     call = _layer_call(layer, remat)
@@ -572,7 +588,7 @@ def _decoder_encdec(cfg: ArchConfig, params: dict, x: torch.Tensor,
             for key, val in (("k", k), ("v", v), ("cross_k", kx_e),
                              ("cross_v", vx_e)):
                 extras[key].append(sh(val, "kv_stack"))
-    x = apply_norm(x, params["ln_f"], cfg.norm)
+    x = apply_norm(x, params["ln_f"], cfg.norm, cfg.norm_eps)
     if last_only:
         x = x[:, -1:]
     logits = sh(batch_only(x) @ params["lm_head"].T, "logits")
@@ -637,7 +653,7 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict,
 
     for li in range(cfg.n_layers):
         lp = layer_params(params["layers"], li)
-        h = apply_norm(x, lp["ln1"], cfg.norm)
+        h = apply_norm(x, lp["ln1"], cfg.norm, cfg.norm_eps)
         if cfg.family == "ssm":
             mix = ssm_step(lp, li, h)
         else:
@@ -667,7 +683,7 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict,
         # be all-reduced again at every use
         x = batch_only(x + mix)
         if is_encdec:
-            hx = apply_norm(x, lp["ln_x"], cfg.norm)
+            hx = apply_norm(x, lp["ln_x"], cfg.norm, cfg.norm_eps)
             qx, _, _ = _qkv(dec_cfg, lp["xattn"], hx)
             cross_k = cache["cross_k"][li]
             enc_len = torch.full((b,), cross_k.shape[1], dtype=torch.int32,
@@ -676,9 +692,9 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict,
                                   shard_fn=sh)
             x = batch_only(x + xo.reshape(b, 1, -1) @ lp["xattn"]["wo"])
         if cfg.family != "ssm":
-            h2 = apply_norm(x, lp["ln2"], cfg.norm)
+            h2 = apply_norm(x, lp["ln2"], cfg.norm, cfg.norm_eps)
             x = batch_only(x + _ffn(cfg, lp, h2, shard_fn))
-    x = apply_norm(x, params["ln_f"], cfg.norm)
+    x = apply_norm(x, params["ln_f"], cfg.norm, cfg.norm_eps)
     logits = sh((batch_only(x) @ params["lm_head"].T)[:, 0],
                 "logits_decode")
     new_cache = dict(cache)

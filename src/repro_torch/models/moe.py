@@ -5,7 +5,9 @@ The same function as the reference, written in torch idiom:
 
 * router logits in fp32, top-k by a STABLE descending sort, so that tied
   logits keep ``lax.top_k``'s order (the lower expert index first), and
-  the top-k gates softmax-normalised;
+  the top-k gates softmax-normalised (``norm_topk_prob``, the reference's
+  only rule; False, which the reference lacks: the softmax over all E
+  logits taken at the top k, as OLMoE publishes it);
 * routing slots in ``(token, k)`` order; a slot's position in its expert
   is a cumsum over the batch ROW (padding tokens count like any other),
   and slots at or past the capacity C = ceil(k S / E cf) are dropped;
@@ -21,8 +23,10 @@ No Pallas kernel computes any of this in the reference.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import NamedTuple
+import threading
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -31,7 +35,7 @@ from .layers import batch_only, no_shard, on_batch_shards, pinned
 
 
 class Routing(NamedTuple):
-    gates: torch.Tensor      # (B, S, k) softmax over the top-k logits
+    gates: torch.Tensor      # (B, S, k) the top-k experts' gates
     idx: torch.Tensor        # (B, S, k) expert ids, descending logits
     pos: torch.Tensor        # (B, S*k) position of each slot in its expert
     keep: torch.Tensor       # (B, S*k) slot kept (pos < capacity)
@@ -53,13 +57,13 @@ def sorted_top_k(logits: torch.Tensor,
 
 
 def route(x: torch.Tensor, p: dict, top_k: int,
-          capacity_factor: float = 1.25) -> Routing:
+          capacity_factor: float = 1.25,
+          norm_topk_prob: bool = True) -> Routing:
     """Router of ``moe_forward`` for x (B, S, d)."""
     b, s, _ = x.shape
     n_exp = p["router"].shape[1]
     logits = x.float() @ p["router"].float()                  # (B, S, E)
-    gates, idx = sorted_top_k(logits, top_k)
-    gates = torch.softmax(gates, dim=-1)
+    gates, idx = _gates(logits, top_k, norm_topk_prob)
     cap = capacity(top_k, s, n_exp, capacity_factor)
     e_flat = idx.reshape(b, s * top_k)                        # (B, S*k)
     # one-hot by comparison: ``F.one_hot`` checks its range on the host,
@@ -69,6 +73,19 @@ def route(x: torch.Tensor, p: dict, top_k: int,
     pos = torch.cumsum(onehot, dim=1, dtype=torch.int32) - 1
     pos_in_e = torch.gather(pos, 2, e_flat[..., None])[..., 0]
     return Routing(gates, idx, pos_in_e, pos_in_e < cap, cap)
+
+
+def _gates(logits: torch.Tensor, top_k: int,
+           norm_topk_prob: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The top-k experts by the stable order of ``sorted_top_k`` and
+    their gates: the softmax over their logits (``norm_topk_prob``), or
+    the softmax over all the logits taken at them, not renormalised.  A
+    tie changes which experts are chosen, never how a chosen one's gate
+    is computed."""
+    top, idx = sorted_top_k(logits, top_k)
+    if norm_topk_prob:
+        return torch.softmax(top, dim=-1), idx
+    return torch.gather(torch.softmax(logits, dim=-1), -1, idx), idx
 
 
 def _swiglu_e(h: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
@@ -84,10 +101,33 @@ def _shared(x: torch.Tensor, sp: dict) -> torch.Tensor:
     return (F.silu(sg) * su) @ sp["w_down"].to(x.dtype)
 
 
+# the counter of the innermost ``counting_drops`` block, per thread
+_drops = threading.local()
+
+
+@contextlib.contextmanager
+def counting_drops(counter: Optional[torch.Tensor]):
+    """``with counting_drops(counter):`` every ``moe_forward`` this thread
+    runs inside the block adds the slots it dropped past capacity to
+    ``counter``, a device int64 scalar, in place: the count stays on the
+    device (and a CUDA graph captured in the block adds to the same
+    counter at every replay) until its owner reads it.  A serving engine
+    holds one and runs its model calls inside the block; nothing is
+    counted outside one."""
+    prev = getattr(_drops, "counter", None)
+    _drops.counter = counter
+    try:
+        yield
+    finally:
+        _drops.counter = prev
+
+
 def moe_forward(x: torch.Tensor, p: dict, top_k: int,
                 capacity_factor: float = 1.25,
-                shard_fn=None) -> torch.Tensor:
-    """x: (B, S, d) -> (B, S, d).  ``shard_fn(x, kind)`` places the
+                shard_fn=None, norm_topk_prob: bool = True) -> torch.Tensor:
+    """x: (B, S, d) -> (B, S, d).  ``norm_topk_prob``: as ``route``.
+    Dropped slots are counted inside ``counting_drops``.
+    ``shard_fn(x, kind)`` places the
     (B, E, C, d) dispatch buffer (``moe_dispatch``: expert-sharded, the
     all-to-all of expert parallelism) and the experts' outputs
     (``moe_combine``); None is the identity.  With a DTensor ``x`` the
@@ -101,8 +141,14 @@ def moe_forward(x: torch.Tensor, p: dict, top_k: int,
     n_exp = p["router"].shape[1]
     cap = capacity(top_k, s, n_exp, capacity_factor)
     buf, *routing = on_batch_shards(
-        lambda q, x: _dispatch(x, q["router"], top_k, capacity_factor), 5,
+        lambda q, x: _dispatch(x, q["router"], top_k, capacity_factor,
+                               norm_topk_prob), 5,
         {"router": p["router"]}, x)
+    # a token's k experts are distinct, so an expert takes at most s slots
+    # of a row: at C >= s nothing drops and nothing is counted
+    counter = getattr(_drops, "counter", None)
+    if counter is not None and cap < s:
+        counter.add_((~routing[3]).sum())
     buf = sh(buf, "moe_dispatch")
 
     # expert FFN batched over the expert axis: (E, B*C, d)
@@ -119,11 +165,12 @@ def moe_forward(x: torch.Tensor, p: dict, top_k: int,
 
 
 def _dispatch(x: torch.Tensor, router: torch.Tensor, top_k: int,
-              capacity_factor: float):
+              capacity_factor: float, norm_topk_prob: bool = True):
     """The (B, E, C, d) dispatch buffer of x and the routing (gates, idx,
     pos, keep) of ``route``."""
     b, s, d = x.shape
-    r = route(x, {"router": router}, top_k, capacity_factor)
+    r = route(x, {"router": router}, top_k, capacity_factor,
+              norm_topk_prob=norm_topk_prob)
     n_exp, cap = router.shape[1], r.capacity
     e_flat = r.idx.reshape(b, s * top_k)
     # each kept slot owns cell e * C + pos of its row; dropped slots all go
@@ -153,15 +200,15 @@ def _combine(y_e: torch.Tensor, gates, idx, pos, keep,
             * gates[..., None].to(y_e.dtype)).sum(dim=2)
 
 
-def moe_ref(x: torch.Tensor, p: dict, top_k: int) -> torch.Tensor:
+def moe_ref(x: torch.Tensor, p: dict, top_k: int,
+            norm_topk_prob: bool = True) -> torch.Tensor:
     """Dropless dense reference: every expert on every token, masked
     combine.  O(E) compute: only for small test configs."""
     orig = x.shape
     d = orig[-1]
     xt = x.reshape(-1, d)
     logits = xt.float() @ p["router"].float()
-    gates, idx = sorted_top_k(logits, top_k)
-    gates = torch.softmax(gates, dim=-1)
+    gates, idx = _gates(logits, top_k, norm_topk_prob)
     g = torch.einsum("td,edf->tef", xt, p["w_gate"].to(x.dtype))
     u = torch.einsum("td,edf->tef", xt, p["w_up"].to(x.dtype))
     y_all = torch.einsum("tef,efd->ted", F.silu(g) * u,
@@ -178,4 +225,4 @@ def moe_ref(x: torch.Tensor, p: dict, top_k: int) -> torch.Tensor:
 
 
 __all__ = ["Routing", "capacity", "sorted_top_k", "route", "moe_forward",
-           "moe_ref"]
+           "moe_ref", "counting_drops"]

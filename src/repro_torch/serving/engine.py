@@ -82,6 +82,7 @@ from ..core.estimator import BatchLatencyEstimator
 from ..core.request import Phase, Request
 from ..kernels import ops
 from ..models.model import ArchConfig, resolve_device
+from ..models.moe import counting_drops
 from . import model_exec
 from .kv_pool import PagedKVPool
 from .prefix_cache import RadixPrefixCache
@@ -236,6 +237,26 @@ class EngineStats:
     spec_depth_hist: dict = field(default_factory=dict)  # depth -> entries
     busy_s: float = 0.0            # host time of the steps that formed a
     # batch, from the plan's first copy to the last token emitted
+    # --- routed experts (MoE models; 0 otherwise) --------------------------
+    moe_routed_slots: int = 0      # slots the model calls' real tokens
+    # routed (tokens x top_k, summed over the layers; model_exec.moe_work)
+    moe_expert_rows: int = 0       # rows the expert GEMMs computed (E x C x
+    # batch rows, padding included, summed over the layers)
+    # the device counter of the slots dropped past capacity, which the
+    # model calls (graph replays included) add to on the device
+    moe_dropped: Optional[torch.Tensor] = field(default=None, repr=False)
+
+    @property
+    def moe_dropped_slots(self) -> int:
+        """Routed slots dropped past capacity since the engine started,
+        read from the device counter (one device sync, here only)."""
+        return 0 if self.moe_dropped is None else int(self.moe_dropped)
+
+    def count_moe(self, work: dict) -> None:
+        """Add one model call's ``model_exec.moe_work``."""
+        if work:
+            self.moe_routed_slots += work["moe_routed"]
+            self.moe_expert_rows += work["moe_rows"]
 
 
 class Engine:
@@ -363,6 +384,9 @@ class Engine:
         # when set, ``now`` tracks wall time relative to a shared epoch
         self._wall_epoch: Optional[float] = None
         self.stats = EngineStats()
+        if cfg.family == "moe":
+            self.stats.moe_dropped = torch.zeros((), dtype=torch.int64,
+                                                 device=self.device)
         self._profile: list[tuple[list, float]] = []
         self.refit_every = 50
         self.alive = True
@@ -822,17 +846,20 @@ class Engine:
                 sp.set(rows=len(plan.entries),
                        tokens=sum(e.n_tokens for e in prefill_entries))
             emitted: list[Request] = []
-            if prefill_entries:
-                if self.packed_prefill:
-                    self._run_prefill_packed(prefill_entries, emitted)
-                else:
-                    self._run_prefill_fallback(prefill_entries, emitted)
             t_capture = 0.0
-            if decode_entries:
-                if self.draft is not None:
-                    self._run_decode_spec(decode_entries, emitted)
-                else:
-                    t_capture = self._run_decode(decode_entries, emitted)
+            # a routed model's layers count their dropped slots on the
+            # device (a MoE draft's too)
+            with counting_drops(self.stats.moe_dropped):
+                if prefill_entries:
+                    if self.packed_prefill:
+                        self._run_prefill_packed(prefill_entries, emitted)
+                    else:
+                        self._run_prefill_fallback(prefill_entries, emitted)
+                if decode_entries:
+                    if self.draft is not None:
+                        self._run_decode_spec(decode_entries, emitted)
+                    else:
+                        t_capture = self._run_decode(decode_entries, emitted)
 
             latency = time.monotonic() - t0
             if self._wall_epoch is not None:
@@ -978,8 +1005,10 @@ class Engine:
                 last, table, lens = (self._dev(a)
                                      for a in (last, table, lens))
         replay = graphs is not None and graphs.ready(b_b, self.pool.kv)
+        work = model_exec.moe_work(self.cfg, b_b, 1, nb)
+        self.stats.count_moe(work)
         with obs.span("model_exec.launch", kind="decode", rows=nb,
-                      tokens=nb, graph=int(replay)):
+                      tokens=nb, graph=int(replay), **work):
             if replay:
                 toks = graphs.replay(b_b)
             elif graphs is not None:
@@ -1067,6 +1096,7 @@ class Engine:
             lens[ri] = decode_entries[i].l_kv + (ri - starts[i])
             row_seg[ri] = i
         tables = self.pool.table_array(rids, maxp=maxp_b, rows=s_b)
+        self.stats.count_moe(model_exec.moe_work(self.cfg, r_b, 1, n_rows))
         # row_seg stays on the host: the verify kernel's wrapper checks it
         # there before each launch
         toks, self.pool.kv = model_exec.verify_step(
@@ -1184,8 +1214,10 @@ class Engine:
             inputs = [self._dev(a) for a in (
                 tokens, positions, q_rows, q_cols, sblocks, sslots, tables,
                 ctx_lens, last_idx)]
+        work = model_exec.moe_work(self.cfg, 1, t_b, total)
+        self.stats.count_moe(work)
         with obs.span("model_exec.launch", kind="prefill", rows=n_seg,
-                      tokens=total):
+                      tokens=total, **work):
             logits, self.pool.kv = model_exec.prefill_packed(
                 self.cfg, self.params, self.pool.kv, *inputs, smax, sq)
         self.stats.packed_prefill_calls += 1
@@ -1214,6 +1246,7 @@ class Engine:
             toks[0, :n] = self._seq_view(r)[ctx:ctx + n]
             span = model_exec.staging_span(ctx, c, self.max_ctx, bs)
             table = self.pool.table_array([r.rid], maxp=span // bs)
+            self.stats.count_moe(model_exec.moe_work(self.cfg, 1, c, n))
             logits, self.pool.kv = model_exec.prefill_chunk(
                 self.cfg, self.params, self.pool.kv, self._dev(toks), table,
                 self._dev(np.array([ctx], np.int32)), span)

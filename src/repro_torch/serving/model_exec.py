@@ -17,6 +17,7 @@
   contiguously and run the chunked prefill kernel.
 * ``DecodeGraphs``   — ``decode_step`` captured into one CUDA graph per
   batch bucket and replayed: the engine's fused decode on the card.
+* ``moe_work``       — a call's routed slots and expert rows, from shapes.
 
 The reference scans over stacked layers inside ``jax.jit`` with the pool
 donated; here a Python loop over layers updates the pool tensor IN PLACE
@@ -43,6 +44,7 @@ from ..kernels.ops import (chunked_prefill_attention,
                            paged_decode_attention)
 from ..models.layers import apply_norm, apply_rope
 from ..models.model import ArchConfig, _ffn, _qkv, layer_params
+from ..models.moe import capacity
 
 # the families whose layers are attention + feed-forward, all of their
 # KV in the paged pool.  The feed-forward (``_ffn``: routed experts or
@@ -63,6 +65,20 @@ def require_paged(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"the paged engine serves the {' and '.join(PAGED_FAMILIES)} "
             f"families; {cfg.name!r} is {cfg.family!r}")
+
+
+def moe_work(cfg: ArchConfig, rows: int, seq: int, tokens: int) -> dict:
+    """A call's routed-expert work, from shapes, summed over the layers:
+    ``moe_routed``, the slots its ``tokens`` real tokens route (tokens x
+    top_k), and ``moe_rows``, the rows its expert GEMMs compute over the
+    (rows, seq) activations it runs, padding included (E x C x rows, C the
+    capacity of a row of ``seq`` tokens).  Empty for a model without
+    routed layers."""
+    if cfg.family != "moe":
+        return {}
+    cap = capacity(cfg.top_k, seq, cfg.n_experts, cfg.capacity_factor)
+    return {"moe_routed": cfg.n_layers * tokens * cfg.top_k,
+            "moe_rows": cfg.n_layers * cfg.n_experts * cap * rows}
 
 
 def _rope(cfg: ArchConfig, q, k, positions):
@@ -90,7 +106,7 @@ def _one_token_forward(cfg: ArchConfig, params: dict, pool_kv: torch.Tensor,
     lens1 = lens + 1
     for li in range(cfg.n_layers):
         lp = layer_params(params["layers"], li)
-        h = apply_norm(x, lp["ln1"], cfg.norm)
+        h = apply_norm(x, lp["ln1"], cfg.norm, cfg.norm_eps)
         q, k, v = _qkv(cfg, lp["attn"], h)
         q, k = _rope(cfg, q, k, positions)
         layer_kv = pool_kv[li]
@@ -99,9 +115,9 @@ def _one_token_forward(cfg: ArchConfig, params: dict, pool_kv: torch.Tensor,
         layer_kv[1, block_of, slot_of] = v[:, 0]
         o = attend(q[:, 0].contiguous(), layer_kv[0], layer_kv[1], lens1)
         x = x + (o.reshape(r, -1) @ lp["attn"]["wo"])[:, None]
-        h2 = apply_norm(x, lp["ln2"], cfg.norm)
+        h2 = apply_norm(x, lp["ln2"], cfg.norm, cfg.norm_eps)
         x = x + _ffn(cfg, lp, h2)
-    x = apply_norm(x, params["ln_f"], cfg.norm)
+    x = apply_norm(x, params["ln_f"], cfg.norm, cfg.norm_eps)
     return (x @ params["lm_head"].T)[:, 0]
 
 
@@ -337,7 +353,7 @@ def prefill_chunk(cfg: ArchConfig, params: dict, pool_kv: torch.Tensor,
     cache_lens = ctx_len + c
     for li in range(cfg.n_layers):
         lp = layer_params(params["layers"], li)
-        h = apply_norm(x, lp["ln1"], cfg.norm)
+        h = apply_norm(x, lp["ln1"], cfg.norm, cfg.norm_eps)
         q, k, v = _qkv(cfg, lp["attn"], h)
         q, k = _rope(cfg, q, k, positions)
         layer_kv = pool_kv[li]
@@ -350,9 +366,9 @@ def prefill_chunk(cfg: ArchConfig, params: dict, pool_kv: torch.Tensor,
         o = chunked_prefill_attention(q.contiguous(), k_stage, v_stage,
                                       cache_lens)
         x = x + o.reshape(1, c, -1) @ lp["attn"]["wo"]
-        h2 = apply_norm(x, lp["ln2"], cfg.norm)
+        h2 = apply_norm(x, lp["ln2"], cfg.norm, cfg.norm_eps)
         x = x + _ffn(cfg, lp, h2)
-    x = apply_norm(x, params["ln_f"], cfg.norm)
+    x = apply_norm(x, params["ln_f"], cfg.norm, cfg.norm_eps)
     return x @ params["lm_head"].T, pool_kv
 
 
@@ -397,7 +413,7 @@ def prefill_packed(cfg: ArchConfig, params: dict, pool_kv: torch.Tensor,
     stage = tables.long()
     for li in range(cfg.n_layers):
         lp = layer_params(params["layers"], li)
-        h = apply_norm(x, lp["ln1"], cfg.norm)
+        h = apply_norm(x, lp["ln1"], cfg.norm, cfg.norm_eps)
         q, k, v = _qkv(cfg, lp["attn"], h)
         q, k = _rope(cfg, q, k, positions)
         layer_kv = pool_kv[li]
@@ -416,9 +432,9 @@ def prefill_packed(cfg: ArchConfig, params: dict, pool_kv: torch.Tensor,
         o_ext = torch.cat([o, o.new_zeros((1,) + tuple(o.shape[1:]))])
         o_flat = o_ext[q_rows, q_cols]                        # (T, H, hd)
         x = x + (o_flat.reshape(t_len, -1) @ lp["attn"]["wo"])[None]
-        h2 = apply_norm(x, lp["ln2"], cfg.norm)
+        h2 = apply_norm(x, lp["ln2"], cfg.norm, cfg.norm_eps)
         x = x + _ffn(cfg, lp, h2)
-    x = apply_norm(x, params["ln_f"], cfg.norm)
+    x = apply_norm(x, params["ln_f"], cfg.norm, cfg.norm_eps)
     # only each segment's LAST chunk token can be sampled
     x_last = x[0, last_idx.long()]                            # (S, d)
     return x_last @ params["lm_head"].T, pool_kv

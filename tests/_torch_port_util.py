@@ -91,11 +91,11 @@ class DropCount:
         self.per_call: list = []
         monkeypatch.setattr(moe, "moe_forward", self)
 
-    def __call__(self, x, p, top_k, capacity_factor=1.25):
+    def __call__(self, x, p, top_k, capacity_factor=1.25, **kw):
         if x.shape[0] == 1 and x.shape[1] > 1:
-            keep = self.moe.route(x, p, top_k, capacity_factor).keep
+            keep = self.moe.route(x, p, top_k, capacity_factor, **kw).keep
             self.per_call.append((~keep).sum())
-        return self.inner(x, p, top_k, capacity_factor)
+        return self.inner(x, p, top_k, capacity_factor, **kw)
 
     @property
     def calls(self) -> int:
